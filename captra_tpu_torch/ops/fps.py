@@ -1,12 +1,20 @@
 """Farthest-point sampling: hand-written CUDA kernels + the plain version.
 
-Counterpart of `captra_tpu/ops/fps_pallas.py`.  Two kernels, built from
-`csrc/fps.cu` at first use:
+Counterpart of `captra_tpu/ops/fps_pallas.py`.  Three kernels and a
+cluster variant, built from `csrc/fps.cu` at first use:
 
   fps_cuda_batched  replaces `_fps_kernel` (entry `fps_pallas_t`): one CTA
                     per cloud, the batch on the grid.
   fps_cuda_wide     replaces `_fps_wide_kernel` (entry `fps_pallas_wide_t`):
                     one cloud per 1024-thread CTA, for B < 8 and N >= 1024.
+  fps_cuda_blocked  replaces `_fps_blocked_kernel` (entry
+                    `fps_pallas_blocked_t`): lazy-update FPS over rows of 128
+                    points, opt-in with CAPTRA_FPS_BLOCKED=1.
+
+Above one CTA's shared memory (8192 points batched, 16384 wide) the batched
+and wide wrappers launch the cluster kernel: a thread-block cluster of 2-8
+CTAs per cloud, its argmax reduced over distributed shared memory.  Those
+launches count under `fps_cuda_batched_cluster` / `fps_cuda_wide_cluster`.
 
 All share one contract with the TPU kernels and with `fps_plain`: xyz rows
 [B, N, 3] float32 -> int32 indices [B, npoint]; first pick 0; running min
@@ -15,12 +23,13 @@ pick the smallest index attaining the max.
 
 `farthest_point_sample_indices` dispatches by device: a CPU tensor takes
 `fps_plain`; a CUDA tensor launches a kernel (chosen as `fps_pallas_t`
-chooses, fps_pallas.py:343) or raises.  There is no fallback.  Each kernel
-wrapper counts its launches in `launch_counts`.
+chooses, fps_pallas.py:340-344) or raises.  There is no fallback.  Each
+kernel wrapper counts its launches in `launch_counts`.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -29,8 +38,21 @@ from captra_tpu_torch.ops import cuda_build
 SOURCE = "fps.cu"
 WIDE_MIN_POINTS = 1024   # = SUBLANE * 128 in the TPU dispatch
 WIDE_MAX_BATCH = 8       # wide below 8 clouds, batched from 8 up
+# the blocked kernel's opt-in range (fps_pallas.py:236-237): 8 TPU tiles of
+# 8 x 128 points up to 24 tiles
+BLOCKED_MIN_POINTS = 8 * 8 * 128
+BLOCKED_MAX_POINTS = 24 * 8 * 128
 
-launch_counts = {"fps_cuda_batched": 0, "fps_cuda_wide": 0}
+# kernel name -> C entry point; the cluster entries are launched by the
+# batched and wide wrappers above their single-CTA bound
+_ENTRIES = {
+    "fps_cuda_batched": "captra_fps_batched",
+    "fps_cuda_wide": "captra_fps_wide",
+    "fps_cuda_batched_cluster": "captra_fps_batched_cluster",
+    "fps_cuda_wide_cluster": "captra_fps_wide_cluster",
+    "fps_cuda_blocked": "captra_fps_blocked",
+}
+launch_counts = {name: 0 for name in _ENTRIES}
 _LIB: ctypes.CDLL | None = None
 
 
@@ -39,17 +61,27 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
+def use_blocked() -> bool:
+    """The blocked kernel's opt-in, read at call time as the JAX package
+    reads it (`fps_pallas._use_blocked`): CAPTRA_FPS_BLOCKED=1."""
+    return os.environ.get("CAPTRA_FPS_BLOCKED") == "1"
+
+
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = cuda_build.load(SOURCE)
-        for fn in (lib.captra_fps_batched, lib.captra_fps_wide):
+        for entry in _ENTRIES.values():
+            fn = getattr(lib, entry)
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        for fn in (lib.captra_fps_batched_max_points,
-                   lib.captra_fps_wide_max_points):
-            fn.argtypes = []
+            bound = getattr(lib, f"{entry}_max_points")
+            bound.argtypes = []
+            bound.restype = ctypes.c_int
+        for fn in (lib.captra_fps_batched_cluster_size,
+                   lib.captra_fps_wide_cluster_size):
+            fn.argtypes = [ctypes.c_int]
             fn.restype = ctypes.c_int
         lib.captra_cuda_error_string.argtypes = [ctypes.c_int]
         lib.captra_cuda_error_string.restype = ctypes.c_char_p
@@ -58,10 +90,23 @@ def _lib() -> ctypes.CDLL:
 
 
 def max_points(kernel: str) -> int:
-    """Largest N the named kernel takes (builds the library)."""
-    lib = _lib()
-    return {"fps_cuda_batched": lib.captra_fps_batched_max_points,
-            "fps_cuda_wide": lib.captra_fps_wide_max_points}[kernel]()
+    """Largest N the named wrapper takes (builds the library): for
+    "fps_cuda_batched" and "fps_cuda_wide", their cluster's bound."""
+    if kernel in ("fps_cuda_batched", "fps_cuda_wide"):
+        kernel += "_cluster"
+    return getattr(_lib(), f"{_ENTRIES[kernel]}_max_points")()
+
+
+def single_cta_points(kernel: str) -> int:
+    """Largest N that "fps_cuda_batched" or "fps_cuda_wide" sweeps in one
+    CTA per cloud; above it they launch their cluster."""
+    return getattr(_lib(), f"{_ENTRIES[kernel]}_max_points")()
+
+
+def cluster_size(kernel: str, n: int) -> int:
+    """CTAs per cluster that `kernel`'s cluster launch gives an n-point
+    cloud (0 if it is beyond the cluster's bound)."""
+    return getattr(_lib(), f"{_ENTRIES[kernel + '_cluster']}_size")(n)
 
 
 def _check(xyz: torch.Tensor, npoint: int, kernel: str) -> None:
@@ -81,19 +126,15 @@ def _check(xyz: torch.Tensor, npoint: int, kernel: str) -> None:
 
 
 def _launch(kernel: str, xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    _check(xyz, npoint, kernel)
+    """Launch `kernel` (a key of `_ENTRIES`) on a checked input and count
+    the launch."""
     B, N, _ = xyz.shape
-    bound = max_points(kernel)
-    if N > bound:
-        raise ValueError(f"{kernel} takes at most {bound} points per cloud, "
-                         f"got {N}")
     lib = _lib()
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    fn = {"fps_cuda_batched": lib.captra_fps_batched,
-          "fps_cuda_wide": lib.captra_fps_wide}[kernel]
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xyz.data_ptr(), out.data_ptr(), B, N, npoint, stream)
+        err = getattr(lib, _ENTRIES[kernel])(xyz.data_ptr(), out.data_ptr(),
+                                             B, N, npoint, stream)
     if err != 0:
         msg = lib.captra_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: {msg} ({err})")
@@ -101,16 +142,43 @@ def _launch(kernel: str, xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
+def _launch_routed(kernel: str, xyz: torch.Tensor, npoint: int
+                   ) -> torch.Tensor:
+    """One CTA per cloud up to the single-CTA bound, a cluster above."""
+    _check(xyz, npoint, kernel)
+    N = xyz.shape[1]
+    bound = max_points(kernel)
+    if N > bound:
+        raise ValueError(f"{kernel} takes at most {bound} points per cloud, "
+                         f"got {N}")
+    if N > single_cta_points(kernel):
+        return _launch(kernel + "_cluster", xyz, npoint)
+    return _launch(kernel, xyz, npoint)
+
+
 def fps_cuda_batched(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """CUDA FPS, one CTA per cloud: xyz [B, N <= 8192, 3] -> int32
-    [B, npoint]."""
-    return _launch("fps_cuda_batched", xyz, npoint)
+    """CUDA FPS, 512 threads per CTA: xyz [B, N, 3] -> int32 [B, npoint].
+    One CTA per cloud for N <= 8192, a cluster of 2-8 CTAs per cloud up to
+    65536; raises above."""
+    return _launch_routed("fps_cuda_batched", xyz, npoint)
 
 
 def fps_cuda_wide(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """CUDA FPS, one 1024-thread CTA per cloud: xyz [B, N <= 16384, 3] ->
+    """CUDA FPS, 1024 threads per CTA: xyz [B, N, 3] -> int32 [B, npoint].
+    One CTA per cloud for N <= 16384, a cluster of 2-8 CTAs per cloud up to
+    131072; raises above."""
+    return _launch_routed("fps_cuda_wide", xyz, npoint)
+
+
+def fps_cuda_blocked(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """CUDA lazy-update FPS, one CTA per cloud: xyz [B, N <= 24576, 3] ->
     int32 [B, npoint]; raises above its bound."""
-    return _launch("fps_cuda_wide", xyz, npoint)
+    _check(xyz, npoint, "fps_cuda_blocked")
+    bound = max_points("fps_cuda_blocked")
+    if xyz.shape[1] > bound:
+        raise ValueError(f"fps_cuda_blocked takes at most {bound} points per "
+                         f"cloud, got {xyz.shape[1]}")
+    return _launch("fps_cuda_blocked", xyz, npoint)
 
 
 def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -132,16 +200,30 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
+def route(B: int, N: int) -> str:
+    """The wrapper a CUDA cloud batch [B, N] goes to, as `fps_pallas_t`
+    chooses (fps_pallas.py:340-344): the blocked kernel under
+    CAPTRA_FPS_BLOCKED=1 for B < 8 and 8192 <= N <= 24576, else the wide
+    kernel for B < 8 and N >= 1024, else the batched kernel (the last two
+    launching their cluster above one CTA)."""
+    if (B < WIDE_MAX_BATCH and use_blocked()
+            and BLOCKED_MIN_POINTS <= N <= BLOCKED_MAX_POINTS):
+        return "fps_cuda_blocked"
+    if B < WIDE_MAX_BATCH and N >= WIDE_MIN_POINTS:
+        return "fps_cuda_wide"
+    return "fps_cuda_batched"
+
+
 def farthest_point_sample_indices(xyz: torch.Tensor, npoint: int
                                   ) -> torch.Tensor:
-    """Device dispatch: CPU -> `fps_plain`; CUDA -> the wide kernel for
-    B < 8 and N >= 1024, else the batched kernel."""
+    """Device dispatch: CPU -> `fps_plain`; CUDA -> the kernel `route`
+    names."""
     if xyz.device.type == "cpu":
         return fps_plain(xyz, npoint)
     if xyz.device.type != "cuda":
         raise ValueError(f"no FPS for device {xyz.device}")
     B, N, _ = xyz.shape
-    xyz = xyz.contiguous()
-    if B < WIDE_MAX_BATCH and N >= WIDE_MIN_POINTS:
-        return fps_cuda_wide(xyz, npoint)
-    return fps_cuda_batched(xyz, npoint)
+    wrapper = {"fps_cuda_blocked": fps_cuda_blocked,
+               "fps_cuda_wide": fps_cuda_wide,
+               "fps_cuda_batched": fps_cuda_batched}[route(B, N)]
+    return wrapper(xyz.contiguous(), npoint)

@@ -9,8 +9,9 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 TF32 off for matmuls and cuDNN; the CUDA kernels of
                 `captra_tpu_torch/csrc/` built from source, with the time.
   2. kernels -- each FPS kernel against the plain PyTorch FPS on the card,
-                at the shapes the main path gives it: indices must be
-                equal.  Kernel and plain times from CUDA events.
+                at the shapes the main paths give it, on tie clouds and on
+                the OTF crop's own working set: indices must be equal.
+                Kernel and plain times from CUDA events.
   3. slice   -- the main path: NOCS bottle tracking at full width (4096
                 points, the `pointnet2_camera` backbone), random weights
                 from a seed, synthetic trajectories of T frames, at B = 1
@@ -22,12 +23,25 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 frame, frames/s and the error to the synthetic ground truth
                 are printed; so is, for information only, the distance of
                 the first tracked frame to the port's CPU run.
-  4. summary -- a JSON line of the kernels, then, as the last line,
-                {"ok": true, "device": {...}}.
+  4. otf     -- the OTF tracking path (`nocs_otf`: raw 480x640 depth ->
+                backprojection and ball crop on the card -> FPS of the
+                20480-point working set to 4096 -> the nets), same nets,
+                depth video from `data/depth_frames.py` (T frames), crop
+                shifts from the seed, in four runs: B=1 (crop ->
+                fps_cuda_wide's cluster), B=1 with CAPTRA_FPS_BLOCKED=1
+                (crop -> fps_cuda_blocked; poses must equal the B=1 run's),
+                B=8 (crop -> fps_cuda_batched's cluster) and B=1 with
+                otf_fps_mode / network fps_mode "grouped".  Each run: counters
+                zeroed just before and read just after, launches per tracked
+                frame as the dispatch predicts, poses finite and within 1e-4
+                of the same run with the plain FPS on the card; ms per
+                tracked step (median of 5 runs of T - 1 steps).
+  5. summary -- JSON lines of the two paths and of the kernels, then, as the
+                last line, {"ok": true, "device": {...}}.
 
 --profile DIR adds a torch.profiler window over a few tracked frames at each
-B (kernel time by name and family, the device's busy share, host syncs) and
-writes the full tables into DIR.
+B and OTF run (kernel time by name and family, the device's busy share, FPS's
+share of the step, host syncs) and writes the full tables into DIR.
 
 Without a CUDA device the script exits with code 2 and prints no result.
 """
@@ -59,6 +73,9 @@ FPS_OPS_PER_POINT_PICK = 10
 REPLACES = {
     "fps_cuda_batched": "captra_tpu/ops/fps_pallas.py:76",   # _fps_kernel
     "fps_cuda_wide": "captra_tpu/ops/fps_pallas.py:103",     # _fps_wide_kernel
+    "fps_cuda_batched_cluster": "captra_tpu/ops/fps_pallas.py:76",
+    "fps_cuda_wide_cluster": "captra_tpu/ops/fps_pallas.py:103",
+    "fps_cuda_blocked": "captra_tpu/ops/fps_pallas.py:142",  # _fps_blocked_kernel
 }
 SOURCE = "captra_tpu_torch/csrc/fps.cu"
 # (kernel, B, N, npoint, where the main path gives it this shape)
@@ -71,9 +88,44 @@ KERNEL_CASES = (
      "off the path: the wide kernel's yardstick"),
     ("fps_cuda_wide", 1, 4096, 512, "sa1 at B=1"),
     ("fps_cuda_wide", 1, 4100, 512, "ragged N"),
-    ("fps_cuda_wide", 2, 16384, 1024, "the wide kernel's bound"),
+    ("fps_cuda_wide", 2, 16384, 1024, "the wide kernel's one-CTA bound"),
+    ("fps_cuda_wide", 1, 20480, 4096, "OTF crop at B=1 (cluster)"),
+    ("fps_cuda_wide", 1, 16400, 1024, "ragged N, cluster"),
+    ("fps_cuda_batched", 8, 20480, 4096, "OTF crop at B=8 (cluster)"),
+    ("fps_cuda_batched", 8, 2560, 512, "grouped OTF crop strata at B=1"),
+    ("fps_cuda_blocked", 1, 20480, 4096, "OTF crop at B=1, "
+     "CAPTRA_FPS_BLOCKED=1"),
+    ("fps_cuda_blocked", 1, 8192, 1024, "the blocked range's low end"),
+    ("fps_cuda_blocked", 2, 24576, 1024, "the blocked kernel's bound"),
+    ("fps_cuda_blocked", 1, 9000, 512, "ragged last row"),
+    ("fps_cuda_batched", 8, 4096, 512, "sa1 at B=8 (OTF)"),
+    ("fps_cuda_batched", 8, 512, 128, "sa2 at B=8 (OTF)"),
+    ("fps_cuda_batched", 8, 512, 64, "grouped sa1 strata at B=1 (OTF)"),
+    ("fps_cuda_batched", 8, 64, 16, "grouped sa2 strata at B=1 (OTF)"),
 )
-HEADLINE = {"fps_cuda_batched": (16, 4096, 512), "fps_cuda_wide": (1, 4096, 512)}
+# each kernel's headline case: (B, N, npoint, where); the crop's kernels are
+# timed on the crop's own working set, the data the main path gives them
+CROP_SET = "OTF crop's own working set"
+HEADLINE = {"fps_cuda_batched": (16, 4096, 512, "sa1 at B=16"),
+            "fps_cuda_wide": (1, 4096, 512, "sa1 at B=1"),
+            "fps_cuda_batched_cluster": (8, 20480, 4096, CROP_SET),
+            "fps_cuda_wide_cluster": (1, 20480, 4096, CROP_SET),
+            "fps_cuda_blocked": (1, 20480, 4096, CROP_SET)}
+# the kernels each path must launch
+SLICE_KERNELS = ("fps_cuda_batched", "fps_cuda_wide")
+# OTF runs: (name, B, fps_mode, CAPTRA_FPS_BLOCKED) and the launches each
+# tracked frame must make (crop + sa1 and sa2 of both nets)
+OTF_RUNS = (("b1", 1, "exact", False), ("b1_blocked", 1, "exact", True),
+            ("b8", 8, "exact", False), ("b1_grouped", 1, "grouped", False))
+OTF_LAUNCHES = {
+    "b1": {"fps_cuda_wide_cluster": 1, "fps_cuda_wide": 2,
+           "fps_cuda_batched": 2},
+    "b1_blocked": {"fps_cuda_blocked": 1, "fps_cuda_wide": 2,
+                   "fps_cuda_batched": 2},
+    "b8": {"fps_cuda_batched_cluster": 1, "fps_cuda_batched": 4},
+    "b1_grouped": {"fps_cuda_batched": 5},
+}
+CAMERA_MS = 33.3            # one 30 Hz frame: the B=1 latency limit
 # kernel families of the profile breakdown: (family, substring of the name)
 PROFILE_FAMILIES = (
     ("fps", "fps_"), ("gemm", "gemm"), ("batch_norm", "batch_norm"),
@@ -81,12 +133,20 @@ PROFILE_FAMILIES = (
     ("reduce", "reduce_kernel"), ("elementwise", "elementwise"),
     ("memcpy/memset", "Mem"),
 )
-# exact distance ties: integer grids and duplicated clouds
+# exact distance ties: integer grids and duplicated clouds; N None is the
+# 16^3 grid or 3 x 1400 points
 TIE_CASES = (
-    ("fps_cuda_batched", 8, "grid", 512),
-    ("fps_cuda_wide", 1, "grid", 512),
-    ("fps_cuda_batched", 8, "dup", 64),
-    ("fps_cuda_wide", 1, "dup", 512),
+    ("fps_cuda_batched", 8, "grid", 512, None),
+    ("fps_cuda_wide", 1, "grid", 512, None),
+    ("fps_cuda_batched", 8, "dup", 64, None),
+    ("fps_cuda_wide", 1, "dup", 512, None),
+    ("fps_cuda_wide", 1, "grid", 2048, 20480),
+    ("fps_cuda_wide", 1, "dup", 2048, 20480),
+    ("fps_cuda_batched", 8, "grid", 512, 20480),
+    ("fps_cuda_batched", 8, "dup", 512, 20480),
+    ("fps_cuda_blocked", 1, "grid", 2048, 20480),
+    ("fps_cuda_blocked", 1, "dup", 2048, 20480),
+    ("fps_cuda_blocked", 2, "dup", 512, 9000),
 )
 
 
@@ -143,16 +203,84 @@ def phase_device() -> None:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
     for name in ("fps_cuda_batched", "fps_cuda_wide"):
-        log(f"  {name}: at most {fps.max_points(name)} points per cloud")
+        log(f"  {name}: one CTA per cloud up to {fps.single_cta_points(name)} "
+            f"points, a cluster up to {fps.max_points(name)} (20480 points: "
+            f"{fps.cluster_size(name, 20480)} CTAs)")
+    log(f"  fps_cuda_blocked: at most {fps.max_points('fps_cuda_blocked')} "
+        "points per cloud")
 
 
-def _tie_cloud(kind: str, B: int, rng) -> np.ndarray:
-    if kind == "grid":   # 16^3 integer grid, shuffled per cloud
-        g = np.stack(np.meshgrid(*[np.arange(16)] * 3, indexing="ij"), -1)
+def _tie_cloud(kind: str, B: int, rng, N: int | None = None) -> np.ndarray:
+    """A shuffled integer grid (16^3 points, or the first N of the smallest
+    cube grid that holds N) or a cloud repeated three times (3 x 1400
+    points, or cut to N)."""
+    if kind == "grid":
+        side = 16 if N is None else int(np.ceil(N ** (1 / 3)))
+        g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1)
         g = g.reshape(-1, 3).astype(np.float32) * 0.1
-        return np.stack([g[rng.permutation(len(g))] for _ in range(B)])
-    base = rng.randn(B, 1400, 3).astype(np.float32)
-    return np.concatenate([base, base, base], axis=1)
+        n = len(g) if N is None else N
+        return np.stack([g[rng.permutation(len(g))[:n]] for _ in range(B)])
+    base = rng.randn(B, 1400 if N is None else -(-N // 3), 3).astype(
+        np.float32)
+    return np.ascontiguousarray(
+        np.concatenate([base, base, base], axis=1)[:, :N])
+
+
+def _launched(fps, call) -> tuple:
+    """Run `call` and return (its result, the one kernel it launched)."""
+    before = dict(fps.launch_counts)
+    out = call()
+    hit = [k for k in before if fps.launch_counts[k] != before[k]]
+    if len(hit) != 1:
+        raise AssertionError(f"expected one kernel launch, got {hit}")
+    return out, hit[0]
+
+
+def _check_case(fps, results, wrapper, xyz, npoint, where):
+    """Hold one wrapper call against the plain FPS, time both, and file the
+    case under the kernel that launched."""
+    B, N, _ = xyz.shape
+    fn = getattr(fps, wrapper)
+    got, kernel = _launched(fps, lambda: fn(xyz, npoint))
+    want = fps.fps_plain(xyz, npoint)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err or got.dtype != torch.int32 or got.shape != (B, npoint):
+        raise AssertionError(f"{kernel} [{B},{N}]->{npoint} ({where}): "
+                             f"indices differ from the plain FPS (max "
+                             f"|diff| {err})")
+    ms = time_ms(lambda: fn(xyz, npoint), reps=20)
+    plain_ms = time_ms(lambda: fps.fps_plain(xyz, npoint), reps=2, warmup=1)
+    bound_ms, bound_by = fps_bound(B, N, npoint)
+    results[kernel].append(dict(B=B, N=N, npoint=npoint, where=where,
+                                max_abs_err=float(err), ms=ms,
+                                plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by))
+    log(f"kernel {kernel} [{B},{N}]->{npoint} ({where}): equal; "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by}), {ms / bound_ms:.0f}x bound")
+
+
+def crop_working_set_cloud(B: int) -> torch.Tensor:
+    """The 20480-point working sets the OTF crop hands FPS at batch B, from
+    frame 0 of the depth video at the init pose, as rows [B, W, 3] on the
+    card."""
+    from captra_tpu_torch.config.presets import nocs_bottle_otf
+    from captra_tpu_torch.data import depth_frames, preprocess
+    cfg = nocs_bottle_otf()
+    depths, masks = depth_frames.make_depth_frames(1, B, seed=SEED)
+    pose = depth_frames.otf_init_pose(depths[0, 0], masks[0, 0], B,
+                                      cfg.obj.num_parts).to("cuda")
+    K = preprocess.intrinsics_tensor(preprocess.NOCS_REAL_INTRINSICS, "cuda")
+    pts3, valid = preprocess.backproject_depth_planes(
+        torch.from_numpy(depths[0]).cuda(), K)
+    shift = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, pts3.shape[-1], (B,))).cuda()
+    _, sub3 = preprocess.crop_working_set(
+        shift, pts3, valid, pose.translation[:, 0, :, 0],
+        cfg.data_radius * pose.scale[:, 0], cfg.num_points,
+        cfg.track.otf_work_factor)
+    return sub3.transpose(1, 2).contiguous()
 
 
 def phase_kernels() -> dict:
@@ -160,36 +288,26 @@ def phase_kernels() -> dict:
     rng = np.random.RandomState(SEED)
     results = {name: [] for name in REPLACES}
     for name, B, N, npoint, where in KERNEL_CASES:
-        kernel = getattr(fps, name)
         xyz = torch.from_numpy(
             rng.randn(B, N, 3).astype(np.float32) * 0.3).cuda()
-        got = kernel(xyz, npoint)
-        want = fps.fps_plain(xyz, npoint)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if err or got.dtype != torch.int32 or got.shape != (B, npoint):
-            raise AssertionError(f"{name} [{B},{N}]->{npoint}: indices differ "
-                                 f"from the plain FPS (max |diff| {err})")
-        ms = time_ms(lambda: kernel(xyz, npoint), reps=20)
-        plain_ms = time_ms(lambda: fps.fps_plain(xyz, npoint), reps=2,
-                           warmup=1)
-        bound_ms, bound_by = fps_bound(B, N, npoint)
-        results[name].append(dict(B=B, N=N, npoint=npoint, where=where,
-                                  max_abs_err=float(err), ms=ms,
-                                  plain_ms=plain_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by))
-        log(f"kernel {name} [{B},{N}]->{npoint} ({where}): equal; "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
-            f"({bound_by}), {ms / bound_ms:.0f}x bound")
-    for name, B, kind, npoint in TIE_CASES:
-        xyz = torch.from_numpy(_tie_cloud(kind, B, rng)).cuda()
-        got = getattr(fps, name)(xyz, npoint)
+        _check_case(fps, results, name, xyz, npoint, where)
+    for name, B, kind, npoint, N in TIE_CASES:
+        xyz = torch.from_numpy(_tie_cloud(kind, B, rng, N)).cuda()
+        got, kernel = _launched(fps, lambda: getattr(fps, name)(xyz, npoint))
         want = fps.fps_plain(xyz, npoint)
         if not torch.equal(got, want):
-            raise AssertionError(f"{name} on a {kind} cloud: tie-break differs"
-                                 " from the plain FPS")
-        log(f"kernel {name} [{B},{xyz.shape[1]}]->{npoint} ({kind} ties): "
+            raise AssertionError(f"{kernel} on a {kind} cloud: tie-break "
+                                 "differs from the plain FPS")
+        log(f"kernel {kernel} [{B},{xyz.shape[1]}]->{npoint} ({kind} ties): "
             "equal")
+    for B, wrappers in ((1, ("fps_cuda_wide", "fps_cuda_blocked")),
+                        (8, ("fps_cuda_batched",))):
+        sub = crop_working_set_cloud(B)
+        distinct = [torch.unique(c, dim=0).shape[0] for c in sub]
+        log(f"OTF crop working set [{B},{sub.shape[1]}]: {distinct} "
+            "distinct points (the rest are wrap-fill duplicates)")
+        for wrapper in wrappers:
+            _check_case(fps, results, wrapper, sub, 4096, CROP_SET)
     log(f"kernel launches in this phase (not the main path's): "
         f"{fps.launch_counts}")
     return results
@@ -219,6 +337,19 @@ def _max_pose_diff(a, b) -> dict:
 def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def time_track(track, steps: int, device: torch.device):
+    """REPEATS timed calls of `track` (a trajectory of `steps` tracked
+    steps, ending in a sync) -> (ms per step of each call, the last aux)."""
+    steps_ms = []
+    for _ in range(REPEATS):
+        sync(device)
+        t0 = time.perf_counter()
+        _, aux = track()
+        sync(device)
+        steps_ms.append((time.perf_counter() - t0) / steps * 1e3)
+    return steps_ms, aux
 
 
 def phase_slice(cfg, device: str = "cuda", profile: str | None = None
@@ -271,14 +402,7 @@ def phase_slice(cfg, device: str = "cuda", profile: str | None = None
     runs, per_b = {}, {}
     for B in BATCHES:
         before = dict(fps.launch_counts)
-        steps_ms = []
-        for _ in range(REPEATS):
-            sync(dev)
-            t0 = time.perf_counter()
-            _, aux = track(B)
-            sync(dev)
-            steps_ms.append((time.perf_counter() - t0) / (T - 1) * 1e3)
-        runs[B] = aux
+        steps_ms, runs[B] = time_track(lambda: track(B), T - 1, dev)
         per_b[B] = {k: fps.launch_counts[k] - before[k] for k in before}
         ms = float(np.median(steps_ms))
         per_b[B].update(ms_per_step=ms, ms_per_step_runs=steps_ms,
@@ -350,15 +474,23 @@ def check_launches(sliced: dict) -> None:
         got = {k: sliced["per_b"][B][k] for k in want}
         if got != want:
             raise AssertionError(f"B={B}: FPS launches {got}, expected {want}")
-    for name, n in sliced["launches"].items():
-        if n == 0:
+    for name in SLICE_KERNELS:
+        if sliced["launches"][name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
+    others = {k: n for k, n in sliced["launches"].items()
+              if k not in SLICE_KERNELS and n}
+    if others:
+        raise AssertionError(f"the slice launched {others}")
 
 
-def profile_window(run, steps: int, B: int, out_dir: str) -> None:
+def profile_window(run, steps: int, B: int, out_dir: str,
+                   tag: str | None = None) -> dict:
     """Kernel time by name over `run` (`steps` tracked steps), and the
     device's busy share of the window's wall time; the full table goes to
-    `out_dir`."""
+    `out_dir` as profile_<tag>.txt.  Returns ms per step: wall, busy, by
+    family, and the host syncs in the window (its own closing sync
+    included)."""
+    tag = tag or f"b{B}"
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -382,7 +514,7 @@ def profile_window(run, steps: int, B: int, out_dir: str) -> None:
     busy = sum(dev_us(e) for e in on_card)
     syncs = sum(e.count for e in averages
                 if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
-    log(f"profile B={B}: {steps} steps, wall {wall_us / steps / 1e3:.2f} ms "
+    log(f"profile {tag}: {steps} steps, wall {wall_us / steps / 1e3:.2f} ms "
         f"per step, device busy {busy / steps / 1e3:.2f} ms per step "
         f"({100 * busy / wall_us:.1f}% of wall), {syncs} host syncs")
     families = {}
@@ -396,15 +528,165 @@ def profile_window(run, steps: int, B: int, out_dir: str) -> None:
         log(f"  {dev_us(e) / steps / 1e3:8.3f} ms/step  x{e.count // steps:<5}"
             f" {e.key[:90]}")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_b{B}.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
         f.write(averages.table(sort_by="self_cuda_time_total", row_limit=-1))
+    return {"wall_ms": wall_us / steps / 1e3, "busy_ms": busy / steps / 1e3,
+            "busy_share": busy / wall_us, "syncs_in_window": syncs,
+            "families_ms": {f: t / steps / 1e3 for f, t in families.items()}}
+
+
+def phase_otf(device: str = "cuda", profile: str | None = None,
+              runs=OTF_RUNS, frames: int = T, config=None) -> dict:
+    """The OTF path: each run of OTF_RUNS tracks a depth video of `frames`
+    frames; returns per run the launches of its timed runs, ms per step and
+    the profile.  `device`, a short `frames` and a small `config(fps_mode=)`
+    let the phase be rehearsed on the CPU with the plain FPS."""
+    from captra_tpu_torch.config.presets import nocs_bottle_otf
+    from captra_tpu_torch.data import depth_frames
+    from captra_tpu_torch.models.coordnet import CoordNet
+    from captra_tpu_torch.models.rotnet import RotNet
+    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.tracking.tracker import (
+        make_track_step, track_trajectory,
+    )
+
+    dev = torch.device(device)
+    config = config or nocs_bottle_otf
+    base = config()
+    gen = torch.Generator().manual_seed(SEED)
+    nets = {"exact": (CoordNet(base, device=dev, generator=gen),
+                      RotNet(base, device=dev, generator=gen))}
+    grouped = config(fps_mode="grouped")
+    nets["grouped"] = (CoordNet(grouped, device=dev), RotNet(grouped,
+                                                              device=dev))
+    for src, dst in zip(nets["exact"], nets["grouped"]):
+        dst.load_state_dict(src.state_dict())
+    P = base.obj.num_parts
+
+    videos = {}
+    for B in sorted({r[1] for r in runs}):
+        depths, masks = depth_frames.make_depth_frames(frames, B, seed=SEED)
+        H, W = depths.shape[-2:]
+        shift = np.random.RandomState(SEED).randint(0, H * W, (frames, B))
+        init = depth_frames.otf_init_pose(depths[0, 0], masks[0, 0], B, P)
+        videos[B] = ({"depth": torch.from_numpy(depths).to(dev),
+                      "mask": torch.from_numpy(masks).to(dev),
+                      "shift": torch.from_numpy(shift).to(dev)},
+                     init.to(dev))
+    log(f"otf: {base.obj.name}, {base.num_points} points from a "
+        f"{H}x{W} depth video, work factor {base.track.otf_work_factor}, "
+        f"compute_dtype {base.network.compute_dtype}, T={frames}, on {dev}")
+
+    out, poses, tracks = {}, {}, {}
+    for name, B, mode, blocked in runs:
+        step = make_track_step(config(fps_mode=mode), *nets[mode],
+                               device=dev)
+        video, init = videos[B]
+
+        def track(upto=frames):
+            return track_trajectory(step, init,
+                                    {k: v[:upto] for k, v in video.items()},
+                                    device=dev)
+
+        with blocked_fps(blocked):
+            track(3)                                  # warm-up
+            sync(dev)
+            fps.reset_launch_counts()
+            steps_ms, aux = time_track(track, frames - 1, dev)
+            launches = dict(fps.launch_counts)
+            for f in ("rotation", "translation", "scale"):
+                if not bool(torch.isfinite(getattr(aux.pose, f)).all()):
+                    raise AssertionError(f"otf {name}: non-finite {f}")
+            with plain_fps_on_card():
+                _, plain = track()
+            diff = _max_pose_diff(aux.pose, plain.pose)
+            log(f"otf {name}: kernels vs plain FPS on {dev}, max |diff| "
+                f"{diff}")
+            if max(diff.values()) > POSE_TOL or not torch.equal(
+                    aux.pred_labels, plain.pred_labels):
+                raise AssertionError(f"otf {name}: poses with the kernels "
+                                     f"differ from the plain FPS by {diff}")
+            prof = (profile_window(lambda: track(4), 3, B, profile,
+                                   tag=f"otf_{name}") if profile else None)
+        poses[name] = aux.pose
+        tracks[name] = (track, blocked)
+        ms = float(np.median(steps_ms))
+        out[name] = dict(B=B, fps_mode=mode, blocked=blocked,
+                         launches=launches, ms_per_step=ms,
+                         ms_per_step_runs=steps_ms,
+                         frames_per_s=B * 1e3 / ms, profile=prof)
+        msg = (f"otf {name}: {ms:.2f} ms per tracked step of {B} frame(s) "
+               f"(median of {REPEATS} runs of {frames - 1} steps; min "
+               f"{min(steps_ms):.2f}, max {max(steps_ms):.2f}), "
+               f"{B * 1e3 / ms:.1f} tracked frames/s")
+        if B == 1:
+            msg += (f"; {'within' if ms <= CAMERA_MS else 'ABOVE'} the "
+                    f"{CAMERA_MS} ms camera limit")
+        if prof:
+            fps_ms = prof["families_ms"].get("fps", 0.0)
+            out[name].update(fps_share=fps_ms / ms,
+                             busy_share=prof["busy_ms"] / ms)
+            msg += (f"; profile: FPS {fps_ms:.3f} ms per step on the card "
+                    f"= {100 * fps_ms / ms:.1f}% of the timed step, card "
+                    f"busy {prof['busy_ms']:.2f} ms = "
+                    f"{100 * prof['busy_ms'] / ms:.1f}% of the timed step "
+                    f"({100 * prof['busy_share']:.1f}% of the profiled "
+                    f"window), {prof['syncs_in_window']} host syncs in the "
+                    "3-step window")
+        log(msg + f"; launches {launches}")
+
+    if "b1" in poses and "b1_blocked" in poses:
+        for f in ("rotation", "translation", "scale"):
+            if not torch.equal(getattr(poses["b1"], f),
+                               getattr(poses["b1_blocked"], f)):
+                raise AssertionError(f"otf: the blocked run's {f} differs "
+                                     "from the default run's")
+        log("otf b1_blocked: poses equal to the b1 run's")
+        # the two B=1 exact runs again, in reverse order: b1, blocked,
+        # blocked, b1 on one card
+        for name in ("b1_blocked", "b1"):
+            track, blocked = tracks[name]
+            with blocked_fps(blocked):
+                steps_ms, _ = time_track(track, frames - 1, dev)
+            out[name]["ms_per_step_again"] = float(np.median(steps_ms))
+        log("otf b1 vs b1_blocked in turns (ms per step, medians of "
+            f"{REPEATS}): b1 {out['b1']['ms_per_step']:.2f}, blocked "
+            f"{out['b1_blocked']['ms_per_step']:.2f}, blocked "
+            f"{out['b1_blocked']['ms_per_step_again']:.2f}, b1 "
+            f"{out['b1']['ms_per_step_again']:.2f}")
+    return out
+
+
+def check_otf_launches(otf: dict, frames: int = T) -> None:
+    """The launches per tracked frame of each OTF run, as predicted."""
+    tracked = REPEATS * (frames - 1)
+    for name, run in otf.items():
+        want = {k: OTF_LAUNCHES[name].get(k, 0) * tracked
+                for k in run["launches"]}
+        if run["launches"] != want:
+            raise AssertionError(f"otf {name}: FPS launches "
+                                 f"{run['launches']}, expected {want}")
+
+
+@contextlib.contextmanager
+def blocked_fps(on: bool):
+    """CAPTRA_FPS_BLOCKED=1 for the scope when `on`, else unset."""
+    old = os.environ.pop("CAPTRA_FPS_BLOCKED", None)
+    if on:
+        os.environ["CAPTRA_FPS_BLOCKED"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("CAPTRA_FPS_BLOCKED", None)
+        if old is not None:
+            os.environ["CAPTRA_FPS_BLOCKED"] = old
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
                         help="add a torch.profiler window at each B and "
-                             "write its tables into DIR")
+                             "OTF run and write its tables into DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -416,24 +698,30 @@ def main() -> int:
     kernels = phase_kernels()
     sliced = phase_slice(nocs_bottle(), profile=args.profile)
     check_launches(sliced)
+    otf = phase_otf(profile=args.profile)
+    check_otf_launches(otf)
 
     line = []
     for name, cases in kernels.items():
-        B, N, npoint = HEADLINE[name]
-        head = next(c for c in cases
-                    if (c["B"], c["N"], c["npoint"]) == (B, N, npoint))
+        B, N, npoint, where = HEADLINE[name]
+        head = next(c for c in cases if (c["B"], c["N"], c["npoint"],
+                                         c["where"]) == (B, N, npoint, where))
+        by_path = {"slice": sliced["launches"][name],
+                   **{f"otf_{r}": otf[r]["launches"][name] for r in otf}}
         line.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
-            "launches": sliced["launches"][name],
+            "launches": sum(by_path.values()),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None,
-            "at": f"[{B},{N}]->{npoint}",
+            "at": f"[{B},{N}]->{npoint}, {where}",
+            "launches_by_path": by_path,
             "shapes": cases,
         })
     log(json.dumps({"slice": {str(B): sliced["per_b"][B] for B in BATCHES}}))
+    log(json.dumps({"otf": otf}))
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,17 @@
 """The port's plain FPS against the JAX package's: bit-identical picks.
 
-The CUDA kernels (fps_cuda_batched, fps_cuda_wide) are held against this
-same plain version on the card by tests/test_torch_cuda.py and
-chip_smoke.py; here the plain version is held against the Pallas kernels in
-interpret mode, in both of their layouts, and against the XLA loop, exact
-and grouped."""
+The CUDA kernels (fps_cuda_batched, fps_cuda_wide and their cluster
+launches, fps_cuda_blocked) are held against this same plain version on the
+card by tests/test_torch_cuda.py and chip_smoke.py; here the plain version
+is held against the Pallas kernels in interpret mode, in all three of their
+layouts, and against the XLA loop, exact and grouped."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from captra_tpu import ops as jops
-from captra_tpu.ops.fps_pallas import fps_pallas_t
+from captra_tpu.ops.fps_pallas import fps_pallas_blocked_t, fps_pallas_t
 from captra_tpu_torch import ops
 from captra_tpu_torch.ops import fps
 
@@ -32,6 +32,18 @@ def test_plain_fps_matches_pallas_interpret(B, N, npoint):
     want = np.asarray(fps_pallas_t(_planes(xyz), npoint, interpret=True))
     got = fps.fps_plain(torch.from_numpy(xyz), npoint)
     assert got.dtype == torch.int32 and got.shape == (B, npoint)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("B,N,npoint", [
+    (1, 1100, 64),    # ragged: padded with point 0 to 2 tiles in JAX
+    (2, 2048, 128),
+])
+def test_plain_fps_matches_blocked_pallas_interpret(B, N, npoint):
+    xyz = np.random.RandomState(B * 11 + N).randn(B, N, 3).astype(np.float32)
+    want = np.asarray(fps_pallas_blocked_t(_planes(xyz), npoint,
+                                           interpret=True))
+    got = fps.fps_plain(torch.from_numpy(xyz), npoint)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -72,15 +84,43 @@ def test_cpu_tensor_dispatches_to_plain(monkeypatch):
     monkeypatch.setattr(fps, "fps_plain",
                         lambda x, n: calls.append((tuple(x.shape), n))
                         or torch.zeros(x.shape[0], n, dtype=torch.int32))
+    monkeypatch.setenv("CAPTRA_FPS_BLOCKED", "1")
     fps.reset_launch_counts()
     ops.farthest_point_sample(torch.zeros(2, 2048, 3), 16)
-    assert calls == [((2, 2048, 3), 16)]
-    assert fps.launch_counts == {"fps_cuda_batched": 0, "fps_cuda_wide": 0}
+    ops.farthest_point_sample(torch.zeros(1, 20480, 3), 16)
+    assert calls == [((2, 2048, 3), 16), ((1, 20480, 3), 16)]
+    assert set(fps.launch_counts) == {
+        "fps_cuda_batched", "fps_cuda_wide", "fps_cuda_batched_cluster",
+        "fps_cuda_wide_cluster", "fps_cuda_blocked"}
+    assert not any(fps.launch_counts.values())
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("B,N,plain,opt_in", [
+    (1, 20480, "fps_cuda_wide", "fps_cuda_blocked"),    # the OTF crop, B=1
+    (1, 8192, "fps_cuda_wide", "fps_cuda_blocked"),
+    (1, 24576, "fps_cuda_wide", "fps_cuda_blocked"),
+    (1, 8191, "fps_cuda_wide", "fps_cuda_wide"),
+    (1, 24577, "fps_cuda_wide", "fps_cuda_wide"),
+    (7, 20480, "fps_cuda_wide", "fps_cuda_blocked"),
+    (8, 20480, "fps_cuda_batched", "fps_cuda_batched"),  # the crop, B=8
+    (1, 4096, "fps_cuda_wide", "fps_cuda_wide"),         # sa1 at B=1
+    (1, 512, "fps_cuda_batched", "fps_cuda_batched"),    # sa2
+    (8, 2560, "fps_cuda_batched", "fps_cuda_batched"),   # grouped crop
+])
+def test_route_mirrors_fps_pallas_t(B, N, plain, opt_in, blocked,
+                                    monkeypatch):
+    if blocked:
+        monkeypatch.setenv("CAPTRA_FPS_BLOCKED", "1")
+    else:
+        monkeypatch.delenv("CAPTRA_FPS_BLOCKED", raising=False)
+    assert fps.route(B, N) == (opt_in if blocked else plain)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.zeros(1, 1024, 3)
-    for kernel in (fps.fps_cuda_batched, fps.fps_cuda_wide):
+    for kernel in (fps.fps_cuda_batched, fps.fps_cuda_wide,
+                   fps.fps_cuda_blocked):
         with pytest.raises(ValueError, match="CUDA"):
             kernel(x, 8)
 

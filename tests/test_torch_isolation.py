@@ -90,7 +90,6 @@ def test_entry_points_need_cuda_or_an_explicit_device(name, monkeypatch):
 
 
 _UNPORTED_TRACK = {
-    "nocs_otf": dict(nocs_otf=True),
     "track_cfg/motion_model": dict(motion_model="const_vel"),
     "track_cfg/refine_iters": dict(refine_iters=2),
     "track_cfg/conf_weighted_delta": dict(conf_weighted_delta=True),
@@ -98,7 +97,6 @@ _UNPORTED_TRACK = {
     "track_cfg/delta_gain": dict(delta_gain=1.5),
     "track_cfg/scale_clamp": dict(scale_clamp=0.1),
     "track_cfg/fit_ransac": dict(fit_ransac=8),
-    "track_cfg/nocs2d_label": dict(nocs2d_label=True),
 }
 
 
