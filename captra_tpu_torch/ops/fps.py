@@ -12,9 +12,10 @@ cluster variant, built from `csrc/fps.cu` at first use:
                     points, opt-in with CAPTRA_FPS_BLOCKED=1.
 
 Above one CTA's shared memory (8192 points batched, 16384 wide) the batched
-and wide wrappers launch the cluster kernel: a thread-block cluster of 2-8
-CTAs per cloud, its argmax reduced over distributed shared memory.  Those
-launches count under `fps_cuda_batched_cluster` / `fps_cuda_wide_cluster`.
+and wide wrappers launch the cluster kernel: a thread-block cluster of 4-16
+CTAs per cloud, each CTA's winner pushed into every peer's shared memory.
+Those launches count under `fps_cuda_batched_cluster` /
+`fps_cuda_wide_cluster`.
 
 All share one contract with the TPU kernels and with `fps_plain`: xyz rows
 [B, N, 3] float32 -> int32 indices [B, npoint]; first pick 0; running min
@@ -83,6 +84,8 @@ def _lib() -> ctypes.CDLL:
                    lib.captra_fps_wide_cluster_size):
             fn.argtypes = [ctypes.c_int]
             fn.restype = ctypes.c_int
+        lib.captra_fps_cluster_threads.argtypes = []
+        lib.captra_fps_cluster_threads.restype = ctypes.c_int
         lib.captra_cuda_error_string.argtypes = [ctypes.c_int]
         lib.captra_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -107,6 +110,11 @@ def cluster_size(kernel: str, n: int) -> int:
     """CTAs per cluster that `kernel`'s cluster launch gives an n-point
     cloud (0 if it is beyond the cluster's bound)."""
     return getattr(_lib(), f"{_ENTRIES[kernel + '_cluster']}_size")(n)
+
+
+def cluster_threads() -> int:
+    """Threads per CTA of the cluster launches."""
+    return _lib().captra_fps_cluster_threads()
 
 
 def _check(xyz: torch.Tensor, npoint: int, kernel: str) -> None:
@@ -157,16 +165,16 @@ def _launch_routed(kernel: str, xyz: torch.Tensor, npoint: int
 
 
 def fps_cuda_batched(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """CUDA FPS, 512 threads per CTA: xyz [B, N, 3] -> int32 [B, npoint].
-    One CTA per cloud for N <= 8192, a cluster of 2-8 CTAs per cloud up to
-    65536; raises above."""
+    """CUDA FPS: xyz [B, N, 3] -> int32 [B, npoint].  One 512-thread CTA
+    per cloud for N <= 8192, a cluster of 4 or 8 CTAs per cloud up to 65536;
+    raises above."""
     return _launch_routed("fps_cuda_batched", xyz, npoint)
 
 
 def fps_cuda_wide(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """CUDA FPS, 1024 threads per CTA: xyz [B, N, 3] -> int32 [B, npoint].
-    One CTA per cloud for N <= 16384, a cluster of 2-8 CTAs per cloud up to
-    131072; raises above."""
+    """CUDA FPS: xyz [B, N, 3] -> int32 [B, npoint].  One 1024-thread CTA
+    per cloud for N <= 16384, a cluster of 4-16 CTAs per cloud up to 131072;
+    raises above."""
     return _launch_routed("fps_cuda_wide", xyz, npoint)
 
 

@@ -35,7 +35,12 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 zeroed just before and read just after, launches per tracked
                 frame as the dispatch predicts, poses finite and within 1e-4
                 of the same run with the plain FPS on the card; ms per
-                tracked step (median of 5 runs of T - 1 steps).
+                tracked step (median of 5 runs of T - 1 steps).  Then, for
+                B=1 and B=8, the crop's working sets of every tracked frame
+                of the video are recorded, the picks each needs before its
+                first forced 0 printed, each crop kernel held against the
+                plain FPS on them and timed over the whole video (ms a
+                frame: the crop's kernel time on the main path).
   5. summary -- JSON lines of the two paths and of the kernels, then, as the
                 last line, {"ok": true, "device": {...}}.
 
@@ -89,9 +94,13 @@ KERNEL_CASES = (
     ("fps_cuda_wide", 1, 4096, 512, "sa1 at B=1"),
     ("fps_cuda_wide", 1, 4100, 512, "ragged N"),
     ("fps_cuda_wide", 2, 16384, 1024, "the wide kernel's one-CTA bound"),
-    ("fps_cuda_wide", 1, 20480, 4096, "OTF crop at B=1 (cluster)"),
+    ("fps_cuda_wide", 1, 20480, 4096, "Gaussian cloud, the OTF crop's "
+     "shape at B=1 (cluster)"),
     ("fps_cuda_wide", 1, 16400, 1024, "ragged N, cluster"),
-    ("fps_cuda_batched", 8, 20480, 4096, "OTF crop at B=8 (cluster)"),
+    ("fps_cuda_wide", 1, 65537, 256, "ragged N, a cluster of 16 CTAs "
+     "(non-portable)"),
+    ("fps_cuda_batched", 8, 20480, 4096, "Gaussian cloud, the OTF crop's "
+     "shape at B=8 (cluster)"),
     ("fps_cuda_batched", 8, 2560, 512, "grouped OTF crop strata at B=1"),
     ("fps_cuda_blocked", 1, 20480, 4096, "OTF crop at B=1, "
      "CAPTRA_FPS_BLOCKED=1"),
@@ -104,13 +113,15 @@ KERNEL_CASES = (
     ("fps_cuda_batched", 8, 64, 16, "grouped sa2 strata at B=1 (OTF)"),
 )
 # each kernel's headline case: (B, N, npoint, where); the crop's kernels are
-# timed on the crop's own working set, the data the main path gives them
+# timed on the crop's working sets of the tracked video, the data the main
+# path gives them (CROP_SET is frame 0's alone)
 CROP_SET = "OTF crop's own working set"
+CROP_VIDEO = "OTF crop's working sets of the tracked video, ms a frame"
 HEADLINE = {"fps_cuda_batched": (16, 4096, 512, "sa1 at B=16"),
             "fps_cuda_wide": (1, 4096, 512, "sa1 at B=1"),
-            "fps_cuda_batched_cluster": (8, 20480, 4096, CROP_SET),
-            "fps_cuda_wide_cluster": (1, 20480, 4096, CROP_SET),
-            "fps_cuda_blocked": (1, 20480, 4096, CROP_SET)}
+            "fps_cuda_batched_cluster": (8, 20480, 4096, CROP_VIDEO),
+            "fps_cuda_wide_cluster": (1, 20480, 4096, CROP_VIDEO),
+            "fps_cuda_blocked": (1, 20480, 4096, CROP_VIDEO)}
 # the kernels each path must launch
 SLICE_KERNELS = ("fps_cuda_batched", "fps_cuda_wide")
 # OTF runs: (name, B, fps_mode, CAPTRA_FPS_BLOCKED) and the launches each
@@ -125,6 +136,10 @@ OTF_LAUNCHES = {
     "b8": {"fps_cuda_batched_cluster": 1, "fps_cuda_batched": 4},
     "b1_grouped": {"fps_cuda_batched": 5},
 }
+# OTF runs whose crop working sets are recorded, and the wrappers checked
+# and timed on them (the blocked run's video is the b1 run's: equal poses)
+CROP_VIDEO_RUNS = {"b1": ("fps_cuda_wide", "fps_cuda_blocked"),
+                   "b8": ("fps_cuda_batched",)}
 CAMERA_MS = 33.3            # one 30 Hz frame: the B=1 latency limit
 # kernel families of the profile breakdown: (family, substring of the name)
 PROFILE_FAMILIES = (
@@ -133,9 +148,15 @@ PROFILE_FAMILIES = (
     ("reduce", "reduce_kernel"), ("elementwise", "elementwise"),
     ("memcpy/memset", "Mem"),
 )
-# exact distance ties: integer grids and duplicated clouds; N None is the
-# 16^3 grid or 3 x 1400 points
+# exact distance ties: integer grids, duplicated clouds, wrap-fill clouds
+# (a few hundred distinct points, then copies of one of them, as the OTF
+# crop makes) and all-equal clouds; N None is the 16^3 grid or 3 x 1400
+# points
 TIE_CASES = (
+    ("fps_cuda_wide", 1, "wrap", 4096, 20480),
+    ("fps_cuda_wide", 1, "equal", 4096, 20480),
+    ("fps_cuda_batched", 8, "wrap", 4096, 20480),
+    ("fps_cuda_batched", 8, "equal", 4096, 20480),
     ("fps_cuda_batched", 8, "grid", 512, None),
     ("fps_cuda_wide", 1, "grid", 512, None),
     ("fps_cuda_batched", 8, "dup", 64, None),
@@ -169,13 +190,30 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def fps_bound(B: int, N: int, npoint: int):
+def picks_before_zero(idx: torch.Tensor) -> list[int]:
+    """Distance updates the data needs for these picks [B, npoint], per
+    cloud: one per pick up to the first pick of index 0 after the first
+    (from there on every minimum is 0 and every pick is 0), else
+    npoint - 1."""
+    B, npoint = idx.shape
+    zero = (idx[:, 1:] == 0).int()
+    first = torch.where(zero.any(1), zero.argmax(1) + 1,
+                        torch.full((B,), npoint - 1, device=idx.device))
+    return first.tolist()
+
+
+def sweeps_needed(idx: torch.Tensor) -> int:
+    """`picks_before_zero`, summed over the clouds."""
+    return sum(picks_before_zero(idx))
+
+
+def fps_bound(B: int, N: int, npoint: int, sweeps: int | None = None):
     """Least time for one FPS sweep on this card: xyz read once and the
-    indices written once, against npoint - 1 distance updates and argmaxes
-    over every point."""
+    indices written once, against `sweeps` (default B * (npoint - 1))
+    distance updates and argmaxes over every point of a cloud."""
+    sweeps = B * (npoint - 1) if sweeps is None else sweeps
     bytes_ms = (B * N * 3 * 4 + B * npoint * 4) / HBM_BYTES_PER_S * 1e3
-    ops_ms = (B * N * (npoint - 1) * FPS_OPS_PER_POINT_PICK
-              / FP32_OPS_PER_S * 1e3)
+    ops_ms = N * sweeps * FPS_OPS_PER_POINT_PICK / FP32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms > ops_ms
                                    else "operations")
 
@@ -205,15 +243,25 @@ def phase_device() -> None:
     for name in ("fps_cuda_batched", "fps_cuda_wide"):
         log(f"  {name}: one CTA per cloud up to {fps.single_cta_points(name)} "
             f"points, a cluster up to {fps.max_points(name)} (20480 points: "
-            f"{fps.cluster_size(name, 20480)} CTAs)")
+            f"{fps.cluster_size(name, 20480)} CTAs of "
+            f"{fps.cluster_threads()} threads)")
     log(f"  fps_cuda_blocked: at most {fps.max_points('fps_cuda_blocked')} "
         "points per cloud")
 
 
 def _tie_cloud(kind: str, B: int, rng, N: int | None = None) -> np.ndarray:
     """A shuffled integer grid (16^3 points, or the first N of the smallest
-    cube grid that holds N) or a cloud repeated three times (3 x 1400
-    points, or cut to N)."""
+    cube grid that holds N), a cloud repeated three times (3 x 1400
+    points, or cut to N), a wrap-fill cloud (300 distinct points, then
+    copies of its point 7) or an all-equal cloud (N copies of one point)."""
+    if kind == "wrap":
+        xyz = np.empty((B, N, 3), np.float32)
+        xyz[:, :300] = rng.randn(B, 300, 3)
+        xyz[:, 300:] = xyz[:, 7:8]
+        return xyz
+    if kind == "equal":
+        return np.ascontiguousarray(
+            np.repeat(rng.randn(B, 1, 3).astype(np.float32), N, axis=1))
     if kind == "grid":
         side = 16 if N is None else int(np.ceil(N ** (1 / 3)))
         g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1)
@@ -251,14 +299,80 @@ def _check_case(fps, results, wrapper, xyz, npoint, where):
                              f"|diff| {err})")
     ms = time_ms(lambda: fn(xyz, npoint), reps=20)
     plain_ms = time_ms(lambda: fps.fps_plain(xyz, npoint), reps=2, warmup=1)
-    bound_ms, bound_by = fps_bound(B, N, npoint)
+    sweeps = sweeps_needed(want)
+    bound_ms, bound_by = fps_bound(B, N, npoint, sweeps)
     results[kernel].append(dict(B=B, N=N, npoint=npoint, where=where,
                                 max_abs_err=float(err), ms=ms,
                                 plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by))
+                                bound_by=bound_by, sweeps=sweeps,
+                                us_per_pick=ms * 1e3 / (npoint - 1)))
     log(f"kernel {kernel} [{B},{N}]->{npoint} ({where}): equal; "
-        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
-        f"({bound_by}), {ms / bound_ms:.0f}x bound")
+        f"{ms:.4f} ms ({ms * 1e3 / (npoint - 1):.3f} us a pick), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}, {sweeps} "
+        f"sweeps the data needs), {ms / bound_ms:.0f}x bound")
+
+
+def check_video_crop(fps, results, wrappers, clouds, npoint, run) -> None:
+    """Hold each wrapper against the plain FPS on every frame's crop working
+    set `clouds` of a tracked video, and time it over the whole video; the
+    case's ms, plain ms, bound and sweeps are per frame."""
+    F = len(clouds)
+    B, N, _ = clouds[0].shape
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    wants = [fps.fps_plain(xyz, npoint) for xyz in clouds]
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end) / F
+    picks = [picks_before_zero(w) for w in wants]
+    sweeps = sum(map(sum, picks))
+    flat = sorted(p for frame in picks for p in frame)
+    log(f"otf {run} crop [{B},{N}]->{npoint}, {F} tracked frames: picks "
+        f"before the first forced 0, per frame summed over the clouds "
+        f"{[sum(p) for p in picks]}; per cloud min {flat[0]}, median "
+        f"{flat[len(flat) // 2]}, max {flat[-1]}")
+    bound_ms, bound_by = fps_bound(B * F, N, npoint, sweeps)
+    for wrapper in wrappers:
+        fn = getattr(fps, wrapper)
+        err = 0
+        for xyz, want in zip(clouds, wants):
+            got, kernel = _launched(fps, lambda: fn(xyz, npoint))
+            err = max(err, int((got.long() - want.long()).abs().max()))
+        if err:
+            raise AssertionError(f"{kernel} on the {run} video's crop: "
+                                 f"indices differ from the plain FPS (max "
+                                 f"|diff| {err})")
+        ms = time_ms(lambda: [fn(xyz, npoint) for xyz in clouds], reps=5,
+                     warmup=1) / F
+        results[kernel].append(dict(
+            B=B, N=N, npoint=npoint, where=CROP_VIDEO, max_abs_err=0.0,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms / F,
+            bound_by=bound_by, sweeps=sweeps / F, frames=F,
+            us_per_pick=ms * 1e3 / (npoint - 1)))
+        log(f"kernel {kernel} [{B},{N}]->{npoint} ({CROP_VIDEO}, otf {run}): "
+            f"equal on all {F} frames; {ms:.4f} ms a frame, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms / F:.5f} ms ({bound_by}, "
+            f"{sweeps / F:.0f} sweeps a frame the data needs)")
+
+
+@contextlib.contextmanager
+def recording_fps(clouds: list, n: int):
+    """Append the input of every FPS call on n-point clouds (the OTF crop's
+    sweeps) to `clouds`; the point ops' FPS runs as routed."""
+    from captra_tpu_torch.ops import pointops
+    routed = pointops.farthest_point_sample_indices
+
+    def record(xyz, npoint):
+        if xyz.shape[1] == n:
+            clouds.append(xyz.clone())
+        return routed(xyz, npoint)
+
+    pointops.farthest_point_sample_indices = record
+    try:
+        yield
+    finally:
+        pointops.farthest_point_sample_indices = routed
 
 
 def crop_working_set_cloud(B: int) -> torch.Tensor:
@@ -536,11 +650,14 @@ def profile_window(run, steps: int, B: int, out_dir: str,
 
 
 def phase_otf(device: str = "cuda", profile: str | None = None,
-              runs=OTF_RUNS, frames: int = T, config=None) -> dict:
+              runs=OTF_RUNS, frames: int = T, config=None,
+              kernels: dict | None = None) -> dict:
     """The OTF path: each run of OTF_RUNS tracks a depth video of `frames`
     frames; returns per run the launches of its timed runs, ms per step and
-    the profile.  `device`, a short `frames` and a small `config(fps_mode=)`
-    let the phase be rehearsed on the CPU with the plain FPS."""
+    the profile.  With `kernels` (phase_kernels' results) the runs of
+    CROP_VIDEO_RUNS add their crop kernels' cases on the video's working
+    sets.  `device`, a short `frames` and a small `config(fps_mode=)` let
+    the phase be rehearsed on the CPU with the plain FPS."""
     from captra_tpu_torch.config.presets import nocs_bottle_otf
     from captra_tpu_torch.data import depth_frames
     from captra_tpu_torch.models.coordnet import CoordNet
@@ -608,6 +725,13 @@ def phase_otf(device: str = "cuda", profile: str | None = None,
                                      f"differ from the plain FPS by {diff}")
             prof = (profile_window(lambda: track(4), 3, B, profile,
                                    tag=f"otf_{name}") if profile else None)
+            if kernels is not None and name in CROP_VIDEO_RUNS:
+                clouds = []
+                with recording_fps(clouds, base.num_points
+                                   * base.track.otf_work_factor):
+                    track()
+                check_video_crop(fps, kernels, CROP_VIDEO_RUNS[name], clouds,
+                                 base.num_points, name)
         poses[name] = aux.pose
         tracks[name] = (track, blocked)
         ms = float(np.median(steps_ms))
@@ -698,7 +822,7 @@ def main() -> int:
     kernels = phase_kernels()
     sliced = phase_slice(nocs_bottle(), profile=args.profile)
     check_launches(sliced)
-    otf = phase_otf(profile=args.profile)
+    otf = phase_otf(profile=args.profile, kernels=kernels)
     check_otf_launches(otf)
 
     line = []

@@ -30,10 +30,16 @@ def _cloud(seed, B, N, device):
 
 
 def _tie_cloud(kind, B, N, seed, device):
-    """Exact distance ties: a shuffled integer grid, or a cloud repeated
-    three times (cut to N points)."""
+    """Exact distance ties: a shuffled integer grid, a cloud repeated three
+    times (cut to N points), a wrap-fill cloud (300 distinct points, then
+    copies of its point 7, as the OTF crop makes) or an all-equal cloud."""
     rng = np.random.RandomState(seed)
-    if kind == "grid":
+    if kind in ("wrap", "equal"):
+        clouds = np.repeat(rng.randn(B, 1, 3).astype(np.float32), N, axis=1)
+        if kind == "wrap":
+            clouds[:, :300] = rng.randn(B, 300, 3)
+            clouds[:, 300:] = clouds[:, 7:8]
+    elif kind == "grid":
         side = int(np.ceil(N ** (1 / 3)))
         g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1)
         g = g.reshape(-1, 3).astype(np.float32) * 0.1
@@ -85,6 +91,52 @@ def test_kernel_ties_match_plain(card, name, B, N, npoint, kind):
     assert torch.equal(got, fps.fps_plain(xyz, npoint))
 
 
+@pytest.mark.parametrize("name,B,kernel", [
+    ("fps_cuda_wide", 1, "fps_cuda_wide_cluster"),
+    ("fps_cuda_batched", 8, "fps_cuda_batched_cluster"),
+])
+@pytest.mark.parametrize("kind", ["wrap", "equal"])
+def test_cluster_degenerate_clouds_match_plain(card, name, B, kernel, kind):
+    # every minimum reaches 0 after the distinct points: the picks from
+    # there on are all index 0
+    xyz = _tie_cloud(kind, B, 20480, 6, card)
+    fps.reset_launch_counts()
+    got = getattr(fps, name)(xyz, 4096)
+    torch.cuda.synchronize()
+    assert fps.launch_counts[kernel] == 1
+    want = fps.fps_plain(xyz, 4096)
+    assert torch.equal(got, want)
+    distinct = 300 if kind == "wrap" else 1
+    assert not want[:, distinct:].any()
+
+
+@pytest.mark.parametrize("name,B", [("fps_cuda_wide", 1),
+                                    ("fps_cuda_batched", 8)])
+def test_cluster_ragged_past_each_size(card, name, B):
+    # one point past the single CTA, and one past each cluster size the
+    # dispatch chooses, up to the bound
+    lo, hi = fps.single_cta_points(name) + 1, fps.max_points(name)
+    sizes = [fps.cluster_size(name, n) for n in range(lo, hi + 1)]
+    firsts = [lo] + [lo + i for i in range(1, len(sizes))
+                     if sizes[i] != sizes[i - 1]]
+    assert len(firsts) >= 2 and 0 not in sizes
+    for n in firsts:
+        xyz = _cloud(n, B, n, card)
+        got = getattr(fps, name)(xyz, 128)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fps.fps_plain(xyz, 128)), n
+
+
+@pytest.mark.parametrize("name,B", [("fps_cuda_wide", 1),
+                                    ("fps_cuda_batched", 8)])
+def test_cluster_runs_at_its_bound(card, name, B):
+    n = fps.max_points(name)
+    xyz = _cloud(3, B, n, card)
+    got = getattr(fps, name)(xyz, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps.fps_plain(xyz, 64))
+
+
 @pytest.mark.parametrize("name", ["fps_cuda_batched", "fps_cuda_wide",
                                   "fps_cuda_blocked"])
 def test_kernel_refuses_clouds_above_its_bound(card, name):
@@ -118,10 +170,19 @@ def test_dispatch_counts_the_kernel_it_launches(card, B, N, blocked, kernel,
 
 
 def test_cluster_sizes(card):
-    assert fps.cluster_size("fps_cuda_wide", 20480) == 2
-    assert fps.cluster_size("fps_cuda_batched", 20480) == 4
-    assert fps.cluster_size("fps_cuda_wide", fps.max_points("fps_cuda_wide")
-                            + 1) == 0
+    # CTAs of 512 threads, at most 5 points a thread up to the portable 8
+    # CTAs (the OTF crop's 20480 points), then up to 16 points a thread at
+    # 8 CTAs, then 16 CTAs (the wide kernel's largest clouds)
+    assert fps.cluster_threads() == 512
+    for name in ("fps_cuda_wide", "fps_cuda_batched"):
+        assert fps.cluster_size(name, 8193) == 4
+        assert fps.cluster_size(name, 10240) == 4
+        assert fps.cluster_size(name, 10241) == 8
+        assert fps.cluster_size(name, 20480) == 8
+        assert fps.cluster_size(name, 65536) == 8
+        assert fps.cluster_size(name, fps.max_points(name) + 1) == 0
+    assert fps.cluster_size("fps_cuda_wide", 65537) == 16
+    assert fps.cluster_size("fps_cuda_wide", 131072) == 16
 
 
 def test_grouped_mode_matches_plain(card):

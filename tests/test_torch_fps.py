@@ -67,6 +67,37 @@ def test_grouped_planes_matches_xla():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _degenerate_cloud(kind, B, N, distinct, seed):
+    """A wrap-fill cloud (`distinct` points, then copies of its point 7, as
+    the OTF crop fills buckets with no in-ball pixel) or an all-equal
+    cloud."""
+    rng = np.random.RandomState(seed)
+    xyz = np.repeat(rng.randn(B, 1, 3).astype(np.float32), N, axis=1)
+    if kind == "wrap":
+        xyz[:, :distinct] = rng.randn(B, distinct, 3)
+        xyz[:, distinct:] = xyz[:, 7:8]
+    return xyz
+
+
+@pytest.mark.parametrize("pallas", [fps_pallas_t, fps_pallas_blocked_t])
+@pytest.mark.parametrize("kind", ["wrap", "equal"])
+@pytest.mark.parametrize("B,N,npoint,distinct", [
+    (1, 2048, 512, 60),
+    (2, 1100, 64, 60),
+])
+def test_plain_fps_matches_pallas_on_degenerate_clouds(pallas, kind, B, N,
+                                                       npoint, distinct):
+    xyz = _degenerate_cloud(kind, B, N, distinct, B + N)
+    want = np.asarray(pallas(_planes(xyz), npoint, interpret=True))
+    got = fps.fps_plain(torch.from_numpy(xyz), npoint).numpy()
+    np.testing.assert_array_equal(got, want)
+    # once every distinct point is picked, every minimum is 0 and every
+    # later pick is index 0
+    picked = min(distinct, npoint) if kind == "wrap" else 1
+    assert len(set(got[0, :picked])) == picked
+    assert (got[:, picked:] == 0).all()
+
+
 def test_ties_take_the_smallest_index():
     # duplicated points make exact ties in the running min
     base = np.random.RandomState(3).randn(1, 16, 3).astype(np.float32)
