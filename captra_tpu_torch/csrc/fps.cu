@@ -19,26 +19,51 @@
 // build also passes -fmad=false) so near-ties pick exactly as the JAX code
 // does; each pick is the SMALLEST index attaining the max.
 //
-// What bounds these kernels on an H100: latency.  A sweep is npoint
-// dependent picks, and each pick is a block-wide (value, index) argmax over
-// the whole cloud, so the arithmetic (~10 flops per point per pick) and the
-// bytes (12 B per point, read once) are tiny next to the per-pick chain of
-// shared-memory loads, two shuffle butterflies and one __syncthreads():
-// about 1 us per pick on an H100 SXM (700 W) at N = 4096, against a bound
-// of under 0.01 us (chip_smoke.py prints both).
-// What the design does about it:
-//   * one CTA owns one cloud for the whole sweep: the xyz sits in shared
-//     memory (structure-of-arrays, conflict-free strided reads) and the
-//     running min sits in registers (ITEMS per thread, fully unrolled), so
-//     no pick touches device memory except thread 0's 4-byte index store;
-//   * the argmax is a warp-shuffle butterfly, then every warp redundantly
-//     reduces the per-warp winners from a double-buffered shared array:
-//     one __syncthreads() per pick, and every thread ends holding the pick;
-//   * the batch is on the grid, so B clouds sweep on B SMs at once (the
-//     counterpart of packing 8 clouds into a TPU tile);
-//   * the wide kernel uses the full 1024-thread CTA for one cloud, so each
-//     thread's serial share of a pick is N/1024 points (the counterpart of
-//     spreading one cloud over all 8 TPU sublanes).
+// The single-CTA sweeps (clouds of up to 8192 points batched, 16384 wide).
+// What bounds them on an H100: the latency of a pick, and the instruction
+// rate of the one SM that holds the cloud.  A sweep is npoint dependent picks; a
+// pick updates every point's running min and takes an argmax over the
+// cloud, so the work (~10 flops a point a pick, the xyz read once) is tiny
+// next to the pick's chain: the bound is under 0.001 us a pick at 4096
+// points (chip_smoke.py prints it beside the time).  A first design took
+// about 1 us a pick there: each thread re-read its points' coordinates from
+// shared memory (3 loads a point), and the argmax was a 10-shuffle
+// butterfly with branches, twice a pick, on 32 warps.  What the design does
+// about each link now:
+//   * the sweep: a thread's points (coordinates and running minima) sit in
+//     registers, fully unrolled, so a pick's sweep makes no memory access:
+//     about 12 instructions a point (9 for the update, 3 for the argmax over
+//     the thread's points), spread over the SM's 4 schedulers.  One shape
+//     falls short: 1024 threads x 16 points (the wide entry's 12289-16384
+//     points, off the main path) needs 64 registers for those arrays alone,
+//     the cap of a 1024-thread CTA, and ptxas spills 32 bytes a thread;
+//     1024 threads is the most a CTA takes, so only a cluster gives such a
+//     cloud fewer points a thread;
+//   * the warp: two redux.sync on the distance bits (as the cluster kernel
+//     does, below) in place of the butterfly;
+//   * the CTA: every warp writes its winner into a double-buffered slot,
+//     one __syncthreads(), then every warp reduces the slots with two
+//     redux.sync and reads the winner's coordinates from a shared copy of
+//     the cloud, so every thread holds the next centre with no second
+//     barrier;
+//   * small clouds (sa2's 512 points, the grouped strata): one warp owns a
+//     cloud, up to 16 points a lane, 4 clouds a CTA (one a scheduler); a
+//     pick is the lane's sweep and two redux.sync, with no barrier;
+//   * the data: the cluster kernel's exact early exit (below), which fires
+//     on wrap-fill and all-equal clouds.
+// Measured on an H100 SXM (PERF.md): 0.45 us
+// a pick at 4096 points in one CTA of 512 threads x 8 points (sa1: 0.23 ms
+// against 0.49-0.53 before), 0.24 us a pick at 512 points in one warp (sa2:
+// 0.031 ms against 0.071).  Weighed and measured there, at 4096 points:
+// 256 x 16 (0.49 us a pick) and 1024 x 4 (0.52 us) against 512 x 8 (0.45);
+// a tree argmax over a thread's points (0.47 us: more instructions, and the
+// four warps of a scheduler hide the chain's latency anyway); warp 0 alone
+// reducing the warps' winners behind a named barrier and posting the winner
+// behind a second (0.48 us); one 64-bit shared atomicMax a warp on
+// (key, ~index) in place of the slots (0.58 us); the cluster launch, 2 CTAs
+// (0.72 us).  At 512 points: a 512-thread CTA in place of a warp (0.27 us
+// against 0.24); a chain argmax in the warp (0.25 us); 8 warp clouds a CTA,
+// two a scheduler (0.36 us), while 1, 2 and 4 tie.
 //
 // The cluster kernel (clouds beyond one CTA: the OTF crop's 20480 points)
 // gives each cloud a cluster of C CTAs, each holding a contiguous slice.
@@ -98,7 +123,9 @@
 // smallest lane of that row holding the max.  Work per pick falls with the
 // rows it touches; the latency chain is two __syncthreads() per pick.
 //
-// A ragged N is masked, not padded: points past N never enter an argmax.
+// A ragged N is masked, not padded: in the single-CTA sweeps a slot past N
+// holds key 0 and can never win; the other kernels keep such points out of
+// every argmax.
 // Launches go on the caller's stream and allocate nothing; each entry point
 // returns cudaGetLastError() after its launch (or kNoClusterFits when no
 // cluster of the chosen shape can be resident on this card).
@@ -115,9 +142,24 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr float kInitDist = 1e10f;
-constexpr int kBatchedThreads = 512;
-constexpr int kWideThreads = 1024;
 constexpr int kMaxItems = 16;
+// The single-CTA shape policy, from timing shapes on the card (PERF.md),
+// shared by the batched and wide entries: a cloud of at most
+// kWarpCloudPoints points sweeps in one warp, kWarpClouds clouds a CTA;
+// a larger one in one CTA of kCtaThreads threads while that leaves at most
+// kMaxItems points a thread, else (the wide entry's clouds above 8192
+// points) of kWideThreads threads.
+constexpr int kWarpCloudPoints = 512;
+constexpr int kWarpClouds = 4;
+constexpr int kCtaThreads = 512;
+constexpr int kWideThreads = 1024;
+constexpr int kBatchedMaxPoints = 8192;
+constexpr int kWideMaxPoints = 16384;
+static_assert(kWarpCloudPoints <= 32 * kMaxItems,
+              "a warp's cloud must fit its registers");
+static_assert(kBatchedMaxPoints <= kWideMaxPoints &&
+                  kWideMaxPoints <= kWideThreads * kMaxItems,
+              "the largest single-CTA cloud must fit one CTA");
 // The cluster kernel's shape policy, from timing shapes on the card
 // (PERF.md): CTAs of kClusterThreads threads, at most kClusterItems points
 // a thread while a portable cluster (8 CTAs) allows, then up to kMaxItems
@@ -166,108 +208,6 @@ __device__ __forceinline__ float sq_dist(float x, float y, float z, float cx,
                    __fmul_rn(dz, dz));
 }
 
-// Copy points [base, base + count) of one cloud into the SoA planes.
-__device__ __forceinline__ void load_planes(const float* __restrict__ xyz,
-                                            int base, int count, int threads,
-                                            float* sx, float* sy, float* sz) {
-  for (int j = threadIdx.x; j < count; j += threads) {
-    const size_t g = 3 * static_cast<size_t>(base + j);
-    sx[j] = xyz[g];
-    sy[j] = xyz[g + 1];
-    sz[j] = xyz[g + 2];
-  }
-}
-
-// One thread's share of a pick over the CTA's `count` points held in
-// shared memory: update its running minima, return its best (value,
-// global index = base + local).
-template <int THREADS, int ITEMS>
-__device__ __forceinline__ void sweep_points(const float* sx, const float* sy,
-                                             const float* sz, int count,
-                                             int base, float cx, float cy,
-                                             float cz, float (&dist)[ITEMS],
-                                             float& best_v, int& best_i) {
-  best_v = -1.0f;  // below any distance: a thread with no points loses
-  best_i = INT_MAX;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const int j = threadIdx.x + k * THREADS;
-    if (j < count) {
-      dist[k] = fminf(dist[k], sq_dist(sx[j], sy[j], sz[j], cx, cy, cz));
-      // ascending j within a thread: strict > keeps the smallest index
-      if (dist[k] > best_v) {
-        best_v = dist[k];
-        best_i = base + j;
-      }
-    }
-  }
-}
-
-template <int THREADS, int ITEMS>
-__device__ __forceinline__ void fps_sweep(const float* __restrict__ xyz,
-                                          int n, int npoint,
-                                          int* __restrict__ out) {
-  constexpr int kWarps = THREADS / 32;
-  extern __shared__ float planes[];  // [3, n]: x plane, y plane, z plane
-  __shared__ float red_v[2][kWarps];
-  __shared__ int red_i[2][kWarps];
-  float* sx = planes;
-  float* sy = planes + n;
-  float* sz = planes + 2 * n;
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  load_planes(xyz, 0, n, THREADS, sx, sy, sz);
-  float dist[ITEMS];  // this thread's points: tid + k * THREADS
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) dist[k] = kInitDist;
-  __syncthreads();
-
-  int far = 0;
-  for (int it = 0; it < npoint; ++it) {
-    if (threadIdx.x == 0) out[it] = far;
-    if (it + 1 == npoint) break;
-    float best_v;
-    int best_i;
-    sweep_points<THREADS, ITEMS>(sx, sy, sz, n, 0, sx[far], sy[far], sz[far],
-                                 dist, best_v, best_i);
-    warp_argmax(best_v, best_i);
-    // double buffer: a warp that races ahead into pick it+1 writes the
-    // other slot, and cannot reach pick it+2 before every warp has passed
-    // pick it+1's barrier, i.e. finished reading this slot
-    const int buf = it & 1;
-    if (lane == 0) {
-      red_v[buf][warp] = best_v;
-      red_i[buf][warp] = best_i;
-    }
-    __syncthreads();
-    best_v = lane < kWarps ? red_v[buf][lane] : -1.0f;
-    best_i = lane < kWarps ? red_i[buf][lane] : INT_MAX;
-    warp_argmax(best_v, best_i);
-    far = best_i;
-  }
-}
-
-template <int ITEMS>
-__global__ void __launch_bounds__(kBatchedThreads)
-    fps_batched_kernel(const float* __restrict__ xyz, int n, int npoint,
-                       int* __restrict__ out) {
-  const size_t b = blockIdx.x;
-  fps_sweep<kBatchedThreads, ITEMS>(xyz + b * 3 * n, n, npoint,
-                                    out + b * npoint);
-}
-
-template <int ITEMS>
-__global__ void __launch_bounds__(kWideThreads, 1)
-    fps_wide_kernel(const float* __restrict__ xyz, int n, int npoint,
-                    int* __restrict__ out) {
-  const size_t b = blockIdx.x;
-  fps_sweep<kWideThreads, ITEMS>(xyz + b * 3 * n, n, npoint,
-                                 out + b * npoint);
-}
-
-// ---- the cluster kernel -------------------------------------------------
-//
 // An argmax key: the bits of a distance.  Distances are >= +0 (sums of
 // squares, min'ed with 1e10), and non-negative floats order as their bit
 // patterns do as unsigned ints, so the max key is the max distance.  A
@@ -283,6 +223,189 @@ __device__ __forceinline__ void warp_argmax_key(unsigned& key,
   idx = __reduce_min_sync(kFull, key == k ? idx : kNoIndex);
   key = k;
 }
+
+// ---- the single-CTA sweeps ----------------------------------------------
+//
+// A thread holds the points t + k * STRIDE (k < ITEMS) of its cloud in
+// registers: coordinates and running minima.  A slot past the cloud's end
+// holds the point (0, 0, 0) at distance +0: its key stays 0 (fminf(+0, d)
+// is +0), so it can only tie a real point at +0, and then index 0, whose
+// own minimum is +0 from pick 0 on, is smaller than its index.  So no
+// sweep tests a bound.
+template <int STRIDE, int ITEMS>
+__device__ __forceinline__ void load_items(const float* __restrict__ xyz,
+                                           int n, int t, float* sx,
+                                           float* sy, float* sz,
+                                           float (&px)[ITEMS],
+                                           float (&py)[ITEMS],
+                                           float (&pz)[ITEMS],
+                                           float (&dist)[ITEMS]) {
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int j = t + k * STRIDE;
+    px[k] = py[k] = pz[k] = dist[k] = 0.0f;
+    if (j < n) {
+      const size_t g = 3 * static_cast<size_t>(j);
+      px[k] = sx[j] = xyz[g];
+      py[k] = sy[j] = xyz[g + 1];
+      pz[k] = sz[j] = xyz[g + 2];
+      dist[k] = kInitDist;
+    }
+  }
+}
+
+// One pick's update of a thread's minima, then their argmax: the key of
+// the largest and its slot k.  An operand with larger indices wins only
+// with a strictly larger key, so a tie keeps the smallest index.  TREE
+// takes the argmax as a tree over k (the shorter chain: a warp alone on its
+// scheduler waits on it), else as a chain (the fewer instructions: four
+// warps share a scheduler).
+template <bool TREE, int ITEMS>
+__device__ __forceinline__ void sweep_items(const float (&px)[ITEMS],
+                                            const float (&py)[ITEMS],
+                                            const float (&pz)[ITEMS],
+                                            float cx, float cy, float cz,
+                                            float (&dist)[ITEMS],
+                                            unsigned& key, int& slot) {
+  unsigned kk[ITEMS];
+  int ks[ITEMS];
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    dist[k] = fminf(dist[k], sq_dist(px[k], py[k], pz[k], cx, cy, cz));
+    kk[k] = __float_as_uint(dist[k]);
+    ks[k] = k;
+  }
+  if constexpr (TREE) {
+#pragma unroll
+    for (int s = 1; s < ITEMS; s *= 2) {
+#pragma unroll
+      for (int k = 0; k + s < ITEMS; k += 2 * s) {
+        if (kk[k + s] > kk[k]) {
+          kk[k] = kk[k + s];
+          ks[k] = ks[k + s];
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 1; k < ITEMS; ++k) {
+      if (kk[k] > kk[0]) {
+        kk[0] = kk[k];
+        ks[0] = ks[k];
+      }
+    }
+  }
+  key = kk[0];
+  slot = ks[0];
+}
+
+// One cloud per CTA of THREADS threads, ITEMS points a thread.  A pick is
+// the thread's sweep, the warp's argmax (two redux.sync), one
+// __syncthreads() over the warps' winners, every warp's argmax of those
+// winners (two redux.sync), and the winner's coordinates from the shared
+// copy of the cloud.
+template <int THREADS, int ITEMS>
+__global__ void __launch_bounds__(THREADS, 1)
+    fps_cta_kernel(const float* __restrict__ xyz, int n, int npoint,
+                   int* __restrict__ out) {
+  constexpr int kWarps = THREADS / 32;
+  extern __shared__ float planes[];  // [3, n]: x plane, y plane, z plane
+  __shared__ uint2 red[2][kWarps];   // each warp's winner (key, index)
+  const size_t b = blockIdx.x;
+  const float* p = xyz + b * 3 * n;
+  int* o = out + b * npoint;
+  float* sx = planes;
+  float* sy = planes + n;
+  float* sz = planes + 2 * n;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float px[ITEMS], py[ITEMS], pz[ITEMS], dist[ITEMS];
+  load_items<THREADS, ITEMS>(p, n, threadIdx.x, sx, sy, sz, px, py, pz,
+                             dist);
+  __syncthreads();
+  float cx = sx[0];
+  float cy = sy[0];
+  float cz = sz[0];
+
+  unsigned far = 0;
+  for (int it = 0; it < npoint; ++it) {
+    if (threadIdx.x == 0) o[it] = static_cast<int>(far);
+    if (it + 1 == npoint) break;
+    unsigned key;
+    int slot;
+    sweep_items<false>(px, py, pz, cx, cy, cz, dist, key, slot);
+    unsigned idx = threadIdx.x + static_cast<unsigned>(slot) * THREADS;
+    warp_argmax_key(key, idx);
+    // double buffer: a warp that races ahead into pick it+1 writes the
+    // other buffer, and cannot reach pick it+2 before every warp has
+    // passed pick it+1's barrier, i.e. finished reading this one
+    const int buf = it & 1;
+    if (lane == 0) red[buf][warp] = make_uint2(key, idx);
+    __syncthreads();
+    const uint2 w = lane < kWarps ? red[buf][lane] : make_uint2(0u, kNoIndex);
+    key = w.x;
+    idx = w.y;
+    warp_argmax_key(key, idx);
+    far = idx;
+    if (key == 0) {
+      // every minimum is +0: point 0's is, so this pick is index 0, and no
+      // later pick changes a minimum, so every later pick is index 0 too
+      for (int j = it + 1 + threadIdx.x; j < npoint; j += THREADS) o[j] = 0;
+      break;
+    }
+    cx = sx[far];
+    cy = sy[far];
+    cz = sz[far];
+  }
+}
+
+// One cloud per warp, kWarpClouds clouds a CTA, ITEMS points a lane: a
+// pick is the lane's sweep, two redux.sync and the winner's coordinates
+// from the warp's own shared copy, with no barrier.
+template <int ITEMS>
+__global__ void __launch_bounds__(kWarpClouds * 32)
+    fps_warp_kernel(const float* __restrict__ xyz, int b, int n, int npoint,
+                    int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int cloud = blockIdx.x * kWarpClouds + warp;
+  if (cloud >= b) return;  // nothing below waits for the whole CTA
+  extern __shared__ float planes[];  // [kWarpClouds][3, n]
+  float* sx = planes + static_cast<size_t>(warp) * 3 * n;
+  float* sy = sx + n;
+  float* sz = sy + n;
+  const float* p = xyz + static_cast<size_t>(cloud) * 3 * n;
+  int* o = out + static_cast<size_t>(cloud) * npoint;
+
+  float px[ITEMS], py[ITEMS], pz[ITEMS], dist[ITEMS];
+  load_items<32, ITEMS>(p, n, lane, sx, sy, sz, px, py, pz, dist);
+  __syncwarp();
+  float cx = sx[0];
+  float cy = sy[0];
+  float cz = sz[0];
+
+  unsigned far = 0;
+  for (int it = 0; it < npoint; ++it) {
+    if (lane == 0) o[it] = static_cast<int>(far);
+    if (it + 1 == npoint) break;
+    unsigned key;
+    int slot;
+    sweep_items<true>(px, py, pz, cx, cy, cz, dist, key, slot);
+    unsigned idx = lane + 32u * static_cast<unsigned>(slot);
+    warp_argmax_key(key, idx);
+    far = idx;
+    if (key == 0) {  // as in fps_cta_kernel
+      for (int j = it + 1 + lane; j < npoint; j += 32) o[j] = 0;
+      break;
+    }
+    cx = sx[far];
+    cy = sy[far];
+    cz = sz[far];
+  }
+}
+
+// ---- the cluster kernel -------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -633,43 +756,98 @@ __global__ void __launch_bounds__(kBlockedThreads, 1)
   }
 }
 
-template <int ITEMS, bool WIDE>
-cudaError_t launch(const float* xyz, int* out, int b, int n, int npoint,
-                   cudaStream_t stream) {
-  const size_t smem = 3 * sizeof(float) * static_cast<size_t>(n);
-  auto kernel = WIDE ? fps_wide_kernel<ITEMS> : fps_batched_kernel<ITEMS>;
-  const int threads = WIDE ? kWideThreads : kBatchedThreads;
-  // the static reduction arrays count against the same 48 KB default, so
-  // the opt-in is set on every launch rather than only above 48 KB dynamic
+// Launch `kernel` with `smem` bytes of dynamic shared memory.  The static
+// arrays count against the same 48 KB default, so the opt-in is set on
+// every launch rather than only above 48 KB dynamic.
+template <typename... Params, typename... Args>
+cudaError_t launch_with_smem(void (*kernel)(Params...), int grid, int threads,
+                             size_t smem, cudaStream_t stream,
+                             Args... args) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<b, threads, smem, stream>>>(xyz, n, npoint, out);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-template <bool WIDE>
+template <int THREADS, int ITEMS>
+cudaError_t launch_cta(const float* xyz, int* out, int b, int n, int npoint,
+                       cudaStream_t stream) {
+  return launch_with_smem(fps_cta_kernel<THREADS, ITEMS>, b, THREADS,
+                          3 * sizeof(float) * static_cast<size_t>(n), stream,
+                          xyz, n, npoint, out);
+}
+
+// The fewest points a thread that the policy gives a CTA of THREADS
+// threads: only counts from there up are instantiated.
+template <int THREADS>
+constexpr int min_items() {
+  const int below = THREADS == kCtaThreads ? kWarpCloudPoints
+                                           : kCtaThreads * kMaxItems;
+  return below / THREADS + 1;
+}
+
+// One CTA of THREADS threads per cloud, ceil(n / THREADS) points a thread
+// rounded up to an instantiated count.
+template <int THREADS>
+cudaError_t dispatch_cta(const float* xyz, int* out, int b, int n,
+                         int npoint, cudaStream_t s) {
+  constexpr int lo = min_items<THREADS>();
+  const int items = (n + THREADS - 1) / THREADS;
+  if constexpr (lo <= 1)
+    if (items <= 1) return launch_cta<THREADS, 1>(xyz, out, b, n, npoint, s);
+  if constexpr (lo <= 2)
+    if (items <= 2) return launch_cta<THREADS, 2>(xyz, out, b, n, npoint, s);
+  if constexpr (lo <= 4)
+    if (items <= 4) return launch_cta<THREADS, 4>(xyz, out, b, n, npoint, s);
+  if constexpr (lo <= 5)
+    if (items <= 5) return launch_cta<THREADS, 5>(xyz, out, b, n, npoint, s);
+  if constexpr (lo <= 8)
+    if (items <= 8) return launch_cta<THREADS, 8>(xyz, out, b, n, npoint, s);
+  if constexpr (lo <= 12)
+    if (items <= 12)
+      return launch_cta<THREADS, 12>(xyz, out, b, n, npoint, s);
+  return launch_cta<THREADS, kMaxItems>(xyz, out, b, n, npoint, s);
+}
+
+// One warp per cloud, min(b, kWarpClouds) clouds a CTA.
+template <int ITEMS>
+cudaError_t launch_warp(const float* xyz, int* out, int b, int n, int npoint,
+                        cudaStream_t stream) {
+  const int clouds = b < kWarpClouds ? b : kWarpClouds;
+  return launch_with_smem(
+      fps_warp_kernel<ITEMS>, (b + kWarpClouds - 1) / kWarpClouds,
+      32 * clouds, 3 * sizeof(float) * static_cast<size_t>(n) * clouds,
+      stream, xyz, b, n, npoint, out);
+}
+
+// The single-CTA policy of both entries (see kWarpCloudPoints).
 int dispatch(const void* xyz, void* out, int b, int n, int npoint,
-             void* stream) {
-  const int threads = WIDE ? kWideThreads : kBatchedThreads;
-  if (b <= 0 || n <= 0 || npoint <= 0 || n > threads * kMaxItems)
+             int max_points, void* stream) {
+  if (b <= 0 || n <= 0 || npoint <= 0 || n > max_points)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* x = static_cast<const float*>(xyz);
   int* o = static_cast<int*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int items = (n + threads - 1) / threads;
   cudaError_t err;
-  if (items <= 1)
-    err = launch<1, WIDE>(x, o, b, n, npoint, s);
-  else if (items <= 2)
-    err = launch<2, WIDE>(x, o, b, n, npoint, s);
-  else if (items <= 4)
-    err = launch<4, WIDE>(x, o, b, n, npoint, s);
-  else if (items <= 8)
-    err = launch<8, WIDE>(x, o, b, n, npoint, s);
-  else
-    err = launch<16, WIDE>(x, o, b, n, npoint, s);
+  if (n <= kWarpCloudPoints) {
+    const int items = (n + 31) / 32;
+    if (items <= 1)
+      err = launch_warp<1>(x, o, b, n, npoint, s);
+    else if (items <= 2)
+      err = launch_warp<2>(x, o, b, n, npoint, s);
+    else if (items <= 4)
+      err = launch_warp<4>(x, o, b, n, npoint, s);
+    else if (items <= 8)
+      err = launch_warp<8>(x, o, b, n, npoint, s);
+    else
+      err = launch_warp<kMaxItems>(x, o, b, n, npoint, s);
+  } else if (n <= kCtaThreads * kMaxItems) {
+    err = dispatch_cta<kCtaThreads>(x, o, b, n, npoint, s);
+  } else {
+    err = dispatch_cta<kWideThreads>(x, o, b, n, npoint, s);
+  }
   return static_cast<int>(err);
 }
 
@@ -743,8 +921,8 @@ extern "C" {
 
 // Largest N each kernel takes: one CTA (threads x points per thread), a
 // cluster, or the blocked kernel's rows.
-int captra_fps_batched_max_points() { return kBatchedThreads * kMaxItems; }
-int captra_fps_wide_max_points() { return kWideThreads * kMaxItems; }
+int captra_fps_batched_max_points() { return kBatchedMaxPoints; }
+int captra_fps_wide_max_points() { return kWideMaxPoints; }
 int captra_fps_batched_cluster_max_points() {
   return kBatchedClusterMaxPoints;
 }
@@ -764,12 +942,12 @@ int captra_fps_wide_cluster_size(int n) {
 // xyz: device float32 [b, n, 3] contiguous; out: device int32 [b, npoint].
 int captra_fps_batched(const void* xyz, void* out, int b, int n, int npoint,
                        void* stream) {
-  return dispatch<false>(xyz, out, b, n, npoint, stream);
+  return dispatch(xyz, out, b, n, npoint, kBatchedMaxPoints, stream);
 }
 
 int captra_fps_wide(const void* xyz, void* out, int b, int n, int npoint,
                     void* stream) {
-  return dispatch<true>(xyz, out, b, n, npoint, stream);
+  return dispatch(xyz, out, b, n, npoint, kWideMaxPoints, stream);
 }
 
 int captra_fps_batched_cluster(const void* xyz, void* out, int b, int n,

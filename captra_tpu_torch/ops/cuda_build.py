@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -48,7 +49,8 @@ def _target(name: str) -> tuple[str, str]:
 
 def build(names: list[str]) -> None:
     """Compile every named source that has no current library, one `nvcc`
-    process per source, all started together."""
+    process per source, all started together; the output of each goes into
+    `build_log[name]`."""
     todo = [(n, src, lib) for n in names for src, lib in [_target(n)]
             if not os.path.exists(lib)]
     if not todo:
@@ -73,6 +75,33 @@ def build(names: list[str]) -> None:
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def ptxas_usage(name: str) -> list[str]:
+    """One line per kernel of `build_log[name]` (`ptxas -v`): its name and
+    template arguments, registers, and spill stores and loads."""
+    usage, kernel = {}, None
+    for line in build_log.get(name, "").splitlines():
+        m = re.search(r"(?:Function properties for|entry function) '?(\S+?)'?"
+                      r"(?: for|$)", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+            usage.setdefault(kernel, ["", ""])
+        elif kernel and "spill" in line:
+            usage[kernel][1] = line.split("stack frame, ")[-1].strip()
+        elif kernel and "Used" in line:
+            usage[kernel][0] = line[line.index("Used"):].split(",")[0]
+    return [f"{k}: {regs}; {spill}" for k, (regs, spill) in usage.items()]
+
+
+def _kernel_name(mangled: str) -> str:
+    """`fps_cta_kernel<512, 8>` from its mangled name (the mangled name
+    itself if it does not parse)."""
+    m = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def load(name: str) -> ctypes.CDLL:

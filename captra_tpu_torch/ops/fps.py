@@ -3,17 +3,20 @@
 Counterpart of `captra_tpu/ops/fps_pallas.py`.  Three kernels and a
 cluster variant, built from `csrc/fps.cu` at first use:
 
-  fps_cuda_batched  replaces `_fps_kernel` (entry `fps_pallas_t`): one CTA
-                    per cloud, the batch on the grid.
+  fps_cuda_batched  replaces `_fps_kernel` (entry `fps_pallas_t`): the
+                    batch on the grid, for B >= 8 or N < 1024.
   fps_cuda_wide     replaces `_fps_wide_kernel` (entry `fps_pallas_wide_t`):
-                    one cloud per 1024-thread CTA, for B < 8 and N >= 1024.
+                    for B < 8 and N >= 1024.
   fps_cuda_blocked  replaces `_fps_blocked_kernel` (entry
                     `fps_pallas_blocked_t`): lazy-update FPS over rows of 128
                     points, opt-in with CAPTRA_FPS_BLOCKED=1.
 
-Above one CTA's shared memory (8192 points batched, 16384 wide) the batched
-and wide wrappers launch the cluster kernel: a thread-block cluster of 4-16
-CTAs per cloud, each CTA's winner pushed into every peer's shared memory.
+Both sweep a cloud of up to 512 points in one warp (4 clouds a CTA) and a
+larger one in one CTA of 512 threads (1024 above 8192 points), points and
+running minima in registers, one barrier a pick.  Above one CTA's shared
+memory (8192 points batched, 16384 wide) they launch the cluster kernel: a
+thread-block cluster of 4-16 CTAs per cloud, each CTA's winner pushed into
+every peer's shared memory.
 Those launches count under `fps_cuda_batched_cluster` /
 `fps_cuda_wide_cluster`.
 
@@ -165,16 +168,16 @@ def _launch_routed(kernel: str, xyz: torch.Tensor, npoint: int
 
 
 def fps_cuda_batched(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """CUDA FPS: xyz [B, N, 3] -> int32 [B, npoint].  One 512-thread CTA
-    per cloud for N <= 8192, a cluster of 4 or 8 CTAs per cloud up to 65536;
-    raises above."""
+    """CUDA FPS: xyz [B, N, 3] -> int32 [B, npoint].  One warp per cloud
+    for N <= 512, one CTA per cloud up to 8192, a cluster of 4 or 8 CTAs per
+    cloud up to 65536; raises above."""
     return _launch_routed("fps_cuda_batched", xyz, npoint)
 
 
 def fps_cuda_wide(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """CUDA FPS: xyz [B, N, 3] -> int32 [B, npoint].  One 1024-thread CTA
-    per cloud for N <= 16384, a cluster of 4-16 CTAs per cloud up to 131072;
-    raises above."""
+    """CUDA FPS: xyz [B, N, 3] -> int32 [B, npoint].  The batched policy up
+    to 8192 points, one 1024-thread CTA per cloud up to 16384, a cluster of
+    4-16 CTAs per cloud up to 131072; raises above."""
     return _launch_routed("fps_cuda_wide", xyz, npoint)
 
 

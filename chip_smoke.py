@@ -37,10 +37,11 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 of the same run with the plain FPS on the card; ms per
                 tracked step (median of 5 runs of T - 1 steps).  Then, for
                 B=1 and B=8, the crop's working sets of every tracked frame
-                of the video are recorded, the picks each needs before its
-                first forced 0 printed, each crop kernel held against the
-                plain FPS on them and timed over the whole video (ms a
-                frame: the crop's kernel time on the main path).
+                of the video are recorded, and so are the inputs of sa1
+                (4096 points) and sa2 (512), the picks each crop needs
+                before its first forced 0 printed, and each kernel held
+                against the plain FPS on them and timed over the whole
+                video (ms a frame: the kernel's time on the main path).
   5. summary -- JSON lines of the two paths and of the kernels, then, as the
                 last line, {"ok": true, "device": {...}}.
 
@@ -89,8 +90,8 @@ KERNEL_CASES = (
     ("fps_cuda_batched", 16, 512, 128, "sa2 at B=16"),
     ("fps_cuda_batched", 1, 512, 128, "sa2 at B=1"),
     ("fps_cuda_batched", 128, 512, 64, "grouped strata of [16,4096]->512"),
-    ("fps_cuda_batched", 1, 4096, 512, "sa1 at B=1 on the batched kernel, "
-     "off the path: the wide kernel's yardstick"),
+    ("fps_cuda_batched", 9, 512, 128, "the last CTA of warps part full"),
+    ("fps_cuda_batched", 13, 513, 128, "one point past a warp's cloud"),
     ("fps_cuda_wide", 1, 4096, 512, "sa1 at B=1"),
     ("fps_cuda_wide", 1, 4100, 512, "ragged N"),
     ("fps_cuda_wide", 2, 16384, 1024, "the wide kernel's one-CTA bound"),
@@ -112,13 +113,15 @@ KERNEL_CASES = (
     ("fps_cuda_batched", 8, 512, 64, "grouped sa1 strata at B=1 (OTF)"),
     ("fps_cuda_batched", 8, 64, 16, "grouped sa2 strata at B=1 (OTF)"),
 )
-# each kernel's headline case: (B, N, npoint, where); the crop's kernels are
-# timed on the crop's working sets of the tracked video, the data the main
-# path gives them (CROP_SET is frame 0's alone)
+# each kernel's headline case: (B, N, npoint, where); every kernel is timed
+# on the FPS inputs of the tracked OTF video, the data the main path gives
+# it: the crop's working sets, sa1's inputs (two a frame: CoordNet and
+# RotNet) and sa2's (CROP_SET is frame 0's working set alone)
 CROP_SET = "OTF crop's own working set"
 CROP_VIDEO = "OTF crop's working sets of the tracked video, ms a frame"
-HEADLINE = {"fps_cuda_batched": (16, 4096, 512, "sa1 at B=16"),
-            "fps_cuda_wide": (1, 4096, 512, "sa1 at B=1"),
+SA_VIDEO = "OTF sa inputs of the tracked video, ms a frame"
+HEADLINE = {"fps_cuda_batched": (8, 4096, 512, SA_VIDEO),
+            "fps_cuda_wide": (1, 4096, 512, SA_VIDEO),
             "fps_cuda_batched_cluster": (8, 20480, 4096, CROP_VIDEO),
             "fps_cuda_wide_cluster": (1, 20480, 4096, CROP_VIDEO),
             "fps_cuda_blocked": (1, 20480, 4096, CROP_VIDEO)}
@@ -136,10 +139,16 @@ OTF_LAUNCHES = {
     "b8": {"fps_cuda_batched_cluster": 1, "fps_cuda_batched": 4},
     "b1_grouped": {"fps_cuda_batched": 5},
 }
-# OTF runs whose crop working sets are recorded, and the wrappers checked
-# and timed on them (the blocked run's video is the b1 run's: equal poses)
-CROP_VIDEO_RUNS = {"b1": ("fps_cuda_wide", "fps_cuda_blocked"),
-                   "b8": ("fps_cuda_batched",)}
+# OTF runs whose FPS inputs are recorded on every tracked frame, and for
+# the crop's (20480 points), sa1's (4096) and sa2's (512) inputs the
+# wrappers checked and timed on them (the blocked run's video is the b1
+# run's: equal poses)
+VIDEO_RUNS = {
+    "b1": {"crop": ("fps_cuda_wide", "fps_cuda_blocked"),
+           "sa1": ("fps_cuda_wide",), "sa2": ("fps_cuda_batched",)},
+    "b8": {"crop": ("fps_cuda_batched",), "sa1": ("fps_cuda_batched",),
+           "sa2": ("fps_cuda_batched",)},
+}
 CAMERA_MS = 33.3            # one 30 Hz frame: the B=1 latency limit
 # kernel families of the profile breakdown: (family, substring of the name)
 PROFILE_FAMILIES = (
@@ -149,10 +158,19 @@ PROFILE_FAMILIES = (
     ("memcpy/memset", "Mem"),
 )
 # exact distance ties: integer grids, duplicated clouds, wrap-fill clouds
-# (a few hundred distinct points, then copies of one of them, as the OTF
+# (min(300, N / 8) distinct points, then copies of one of them, as the OTF
 # crop makes) and all-equal clouds; N None is the 16^3 grid or 3 x 1400
-# points
+# points.  The wrap-fill and all-equal clouds reach the kernels' early exit.
 TIE_CASES = (
+    ("fps_cuda_wide", 1, "wrap", 512, 4096),
+    ("fps_cuda_wide", 1, "equal", 512, 4096),
+    ("fps_cuda_batched", 8, "wrap", 512, 4096),
+    ("fps_cuda_batched", 8, "equal", 512, 4096),
+    ("fps_cuda_batched", 8, "wrap", 128, 512),
+    ("fps_cuda_batched", 8, "equal", 128, 512),
+    ("fps_cuda_wide", 1, "dup", 512, 4096),
+    ("fps_cuda_batched", 8, "grid", 128, 512),
+    ("fps_cuda_batched", 8, "dup", 128, 512),
     ("fps_cuda_wide", 1, "wrap", 4096, 20480),
     ("fps_cuda_wide", 1, "equal", 4096, 20480),
     ("fps_cuda_batched", 8, "wrap", 4096, 20480),
@@ -175,11 +193,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of `fn` over `reps` calls (CUDA events)."""
+def time_ms(fn, reps: int, warmup: int = 2, launches: int = 1) -> float:
+    """Mean device time of `fn` over `reps` calls (CUDA events).  The card
+    first sleeps for about 100 us per kernel launch to come (`launches` a
+    call), so the host has queued every call before the first event and a
+    kernel shorter than its launch's host time is still timed, not the
+    host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(200_000 * reps * launches)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -237,9 +260,8 @@ def phase_device() -> None:
     cuda_build.build([fps.SOURCE])
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {cuda_build.build_seconds})")
-    for line in cuda_build.build_log.get(fps.SOURCE, "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for line in cuda_build.ptxas_usage(fps.SOURCE):
+        log(f"  ptxas: {line}")
     for name in ("fps_cuda_batched", "fps_cuda_wide"):
         log(f"  {name}: one CTA per cloud up to {fps.single_cta_points(name)} "
             f"points, a cluster up to {fps.max_points(name)} (20480 points: "
@@ -252,12 +274,14 @@ def phase_device() -> None:
 def _tie_cloud(kind: str, B: int, rng, N: int | None = None) -> np.ndarray:
     """A shuffled integer grid (16^3 points, or the first N of the smallest
     cube grid that holds N), a cloud repeated three times (3 x 1400
-    points, or cut to N), a wrap-fill cloud (300 distinct points, then
-    copies of its point 7) or an all-equal cloud (N copies of one point)."""
+    points, or cut to N), a wrap-fill cloud (min(300, N / 8) distinct
+    points, then copies of its point 7) or an all-equal cloud (N copies of
+    one point)."""
     if kind == "wrap":
+        d = min(300, N // 8)
         xyz = np.empty((B, N, 3), np.float32)
-        xyz[:, :300] = rng.randn(B, 300, 3)
-        xyz[:, 300:] = xyz[:, 7:8]
+        xyz[:, :d] = rng.randn(B, d, 3)
+        xyz[:, d:] = xyz[:, 7:8]
         return xyz
     if kind == "equal":
         return np.ascontiguousarray(
@@ -284,11 +308,10 @@ def _launched(fps, call) -> tuple:
     return out, hit[0]
 
 
-def _check_case(fps, results, wrapper, xyz, npoint, where):
-    """Hold one wrapper call against the plain FPS, time both, and file the
-    case under the kernel that launched."""
+def _check_case(fps, results, fn, xyz, npoint, where):
+    """Hold one call `fn(xyz, npoint)` of a wrapper against the plain FPS,
+    time both, and file the case under the kernel that launched."""
     B, N, _ = xyz.shape
-    fn = getattr(fps, wrapper)
     got, kernel = _launched(fps, lambda: fn(xyz, npoint))
     want = fps.fps_plain(xyz, npoint)
     torch.cuda.synchronize()
@@ -312,11 +335,14 @@ def _check_case(fps, results, wrapper, xyz, npoint, where):
         f"sweeps the data needs), {ms / bound_ms:.0f}x bound")
 
 
-def check_video_crop(fps, results, wrappers, clouds, npoint, run) -> None:
-    """Hold each wrapper against the plain FPS on every frame's crop working
-    set `clouds` of a tracked video, and time it over the whole video; the
-    case's ms, plain ms, bound and sweeps are per frame."""
-    F = len(clouds)
+def check_video(fps, results, wrappers, clouds, npoint, run, frames,
+                where) -> None:
+    """Hold each wrapper against the plain FPS on every input `clouds` that
+    one FPS call of a tracked video of `frames` frames was given, and time
+    it over the whole video; the case's ms, plain ms, bound and sweeps are
+    per frame."""
+    F = frames
+    calls = len(clouds)
     B, N, _ = clouds[0].shape
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -327,12 +353,12 @@ def check_video_crop(fps, results, wrappers, clouds, npoint, run) -> None:
     plain_ms = start.elapsed_time(end) / F
     picks = [picks_before_zero(w) for w in wants]
     sweeps = sum(map(sum, picks))
-    flat = sorted(p for frame in picks for p in frame)
-    log(f"otf {run} crop [{B},{N}]->{npoint}, {F} tracked frames: picks "
-        f"before the first forced 0, per frame summed over the clouds "
-        f"{[sum(p) for p in picks]}; per cloud min {flat[0]}, median "
+    flat = sorted(p for call in picks for p in call)
+    log(f"otf {run} [{B},{N}]->{npoint}, {calls} calls in {F} tracked "
+        f"frames: picks before the first forced 0, per call summed over the "
+        f"clouds {[sum(p) for p in picks]}; per cloud min {flat[0]}, median "
         f"{flat[len(flat) // 2]}, max {flat[-1]}")
-    bound_ms, bound_by = fps_bound(B * F, N, npoint, sweeps)
+    bound_ms, bound_by = fps_bound(B * calls, N, npoint, sweeps)
     for wrapper in wrappers:
         fn = getattr(fps, wrapper)
         err = 0
@@ -340,32 +366,33 @@ def check_video_crop(fps, results, wrappers, clouds, npoint, run) -> None:
             got, kernel = _launched(fps, lambda: fn(xyz, npoint))
             err = max(err, int((got.long() - want.long()).abs().max()))
         if err:
-            raise AssertionError(f"{kernel} on the {run} video's crop: "
-                                 f"indices differ from the plain FPS (max "
-                                 f"|diff| {err})")
+            raise AssertionError(f"{kernel} on the {run} video's [{B},{N}] "
+                                 f"inputs: indices differ from the plain FPS "
+                                 f"(max |diff| {err})")
         ms = time_ms(lambda: [fn(xyz, npoint) for xyz in clouds], reps=5,
-                     warmup=1) / F
+                     warmup=1, launches=calls) / F
         results[kernel].append(dict(
-            B=B, N=N, npoint=npoint, where=CROP_VIDEO, max_abs_err=0.0,
+            B=B, N=N, npoint=npoint, where=where, max_abs_err=0.0,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms / F,
-            bound_by=bound_by, sweeps=sweeps / F, frames=F,
-            us_per_pick=ms * 1e3 / (npoint - 1)))
-        log(f"kernel {kernel} [{B},{N}]->{npoint} ({CROP_VIDEO}, otf {run}): "
-            f"equal on all {F} frames; {ms:.4f} ms a frame, plain "
+            bound_by=bound_by, sweeps=sweeps / F, frames=F, calls=calls,
+            us_per_pick=ms * 1e3 * F / calls / (npoint - 1)))
+        log(f"kernel {kernel} [{B},{N}]->{npoint} ({where}, otf {run}): "
+            f"equal on all {calls} calls; {ms:.4f} ms a frame "
+            f"({ms * 1e3 * F / calls / (npoint - 1):.3f} us a pick), plain "
             f"{plain_ms:.3f} ms, bound {bound_ms / F:.5f} ms ({bound_by}, "
             f"{sweeps / F:.0f} sweeps a frame the data needs)")
 
 
 @contextlib.contextmanager
-def recording_fps(clouds: list, n: int):
-    """Append the input of every FPS call on n-point clouds (the OTF crop's
-    sweeps) to `clouds`; the point ops' FPS runs as routed."""
+def recording_fps(calls: dict):
+    """Append the input of every FPS call to `calls[(N, npoint)]`; the point
+    ops' FPS runs as routed."""
     from captra_tpu_torch.ops import pointops
     routed = pointops.farthest_point_sample_indices
 
     def record(xyz, npoint):
-        if xyz.shape[1] == n:
-            clouds.append(xyz.clone())
+        calls.setdefault((xyz.shape[1], npoint), []).append(
+            xyz.clone(memory_format=torch.contiguous_format))
         return routed(xyz, npoint)
 
     pointops.farthest_point_sample_indices = record
@@ -404,7 +431,15 @@ def phase_kernels() -> dict:
     for name, B, N, npoint, where in KERNEL_CASES:
         xyz = torch.from_numpy(
             rng.randn(B, N, 3).astype(np.float32) * 0.3).cuda()
-        _check_case(fps, results, name, xyz, npoint, where)
+        _check_case(fps, results, getattr(fps, name), xyz, npoint, where)
+    # a yardstick off the path: the cluster launch (2 CTAs) on sa1's B=1
+    # shape, which route() gives one CTA
+    xyz = torch.from_numpy(rng.randn(1, 4096, 3).astype(np.float32) * 0.3
+                           ).cuda()
+    _check_case(fps, results,
+                lambda x, n: fps._launch("fps_cuda_wide_cluster", x, n), xyz,
+                512, "the cluster launch on sa1's shape, off the path: the "
+                "single CTA's yardstick")
     for name, B, kind, npoint, N in TIE_CASES:
         xyz = torch.from_numpy(_tie_cloud(kind, B, rng, N)).cuda()
         got, kernel = _launched(fps, lambda: getattr(fps, name)(xyz, npoint))
@@ -421,7 +456,8 @@ def phase_kernels() -> dict:
         log(f"OTF crop working set [{B},{sub.shape[1]}]: {distinct} "
             "distinct points (the rest are wrap-fill duplicates)")
         for wrapper in wrappers:
-            _check_case(fps, results, wrapper, sub, 4096, CROP_SET)
+            _check_case(fps, results, getattr(fps, wrapper), sub, 4096,
+                        CROP_SET)
     log(f"kernel launches in this phase (not the main path's): "
         f"{fps.launch_counts}")
     return results
@@ -655,9 +691,9 @@ def phase_otf(device: str = "cuda", profile: str | None = None,
     """The OTF path: each run of OTF_RUNS tracks a depth video of `frames`
     frames; returns per run the launches of its timed runs, ms per step and
     the profile.  With `kernels` (phase_kernels' results) the runs of
-    CROP_VIDEO_RUNS add their crop kernels' cases on the video's working
-    sets.  `device`, a short `frames` and a small `config(fps_mode=)` let
-    the phase be rehearsed on the CPU with the plain FPS."""
+    VIDEO_RUNS add their kernels' cases on the video's own FPS inputs.
+    `device`, a short `frames` and a small `config(fps_mode=)` let the
+    phase be rehearsed on the CPU with the plain FPS."""
     from captra_tpu_torch.config.presets import nocs_bottle_otf
     from captra_tpu_torch.data import depth_frames
     from captra_tpu_torch.models.coordnet import CoordNet
@@ -725,13 +761,18 @@ def phase_otf(device: str = "cuda", profile: str | None = None,
                                      f"differ from the plain FPS by {diff}")
             prof = (profile_window(lambda: track(4), 3, B, profile,
                                    tag=f"otf_{name}") if profile else None)
-            if kernels is not None and name in CROP_VIDEO_RUNS:
-                clouds = []
-                with recording_fps(clouds, base.num_points
-                                   * base.track.otf_work_factor):
+            if kernels is not None and name in VIDEO_RUNS:
+                calls = {}
+                with recording_fps(calls):
                     track()
-                check_video_crop(fps, kernels, CROP_VIDEO_RUNS[name], clouds,
-                                 base.num_points, name)
+                roles = {base.num_points * base.track.otf_work_factor:
+                         "crop", base.num_points: "sa1"}
+                for (n, npoint), clouds in sorted(calls.items(),
+                                                  reverse=True):
+                    role = roles.get(n, "sa2")
+                    check_video(fps, kernels, VIDEO_RUNS[name][role], clouds,
+                                npoint, name, frames - 1,
+                                CROP_VIDEO if role == "crop" else SA_VIDEO)
         poses[name] = aux.pose
         tracks[name] = (track, blocked)
         ms = float(np.median(steps_ms))

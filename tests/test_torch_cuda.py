@@ -29,16 +29,24 @@ def _cloud(seed, B, N, device):
     return torch.from_numpy(rng.randn(B, N, 3).astype(np.float32)).to(device)
 
 
+def _wrap_distinct(N):
+    """Distinct points of a wrap-fill cloud of N points: fewer than the
+    picks the tests ask of it, so every minimum reaches 0 before the end."""
+    return min(300, N // 8)
+
+
 def _tie_cloud(kind, B, N, seed, device):
     """Exact distance ties: a shuffled integer grid, a cloud repeated three
-    times (cut to N points), a wrap-fill cloud (300 distinct points, then
-    copies of its point 7, as the OTF crop makes) or an all-equal cloud."""
+    times (cut to N points), a wrap-fill cloud (`_wrap_distinct(N)` distinct
+    points, then copies of its point 7, as the OTF crop makes) or an
+    all-equal cloud."""
     rng = np.random.RandomState(seed)
     if kind in ("wrap", "equal"):
         clouds = np.repeat(rng.randn(B, 1, 3).astype(np.float32), N, axis=1)
         if kind == "wrap":
-            clouds[:, :300] = rng.randn(B, 300, 3)
-            clouds[:, 300:] = clouds[:, 7:8]
+            d = _wrap_distinct(N)
+            clouds[:, :d] = rng.randn(B, d, 3)
+            clouds[:, d:] = clouds[:, 7:8]
     elif kind == "grid":
         side = int(np.ceil(N ** (1 / 3)))
         g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1)
@@ -50,8 +58,30 @@ def _tie_cloud(kind, B, N, seed, device):
     return torch.from_numpy(np.ascontiguousarray(np.stack(clouds))).to(device)
 
 
+# every items threshold of the single-CTA policy (fps.cu: one warp per cloud
+# up to 512 points, at 1, 2, 4, 8 or 16 points a lane; 512-thread CTAs at
+# 2, 4, 5, 8, 12 or 16 points a thread up to 8192; 1024-thread CTAs at 12 or
+# 16 above), and one point past it
+_BATCHED_THRESHOLDS = (32, 64, 128, 256, 512, 1024, 2048, 2560, 4096, 6144)
+_WIDE_THRESHOLDS = (8192, 12288)
+
+
 @pytest.mark.parametrize("name,B,N,npoint", [
     ("fps_cuda_batched", 9, 700, 40),      # one partly filled thread
+    *[("fps_cuda_batched", 3, n + d, min(64, n)) for n in _BATCHED_THRESHOLDS
+      for d in (0, 1)],
+    *[("fps_cuda_wide", 2, n + d, 64) for n in _WIDE_THRESHOLDS
+      for d in (0, 1)],
+    ("fps_cuda_batched", 9, 512, 128),     # the last CTA of warps part full
+    ("fps_cuda_batched", 13, 512, 128),
+    ("fps_cuda_batched", 3, 512, 128),     # fewer clouds than a CTA's warps
+    ("fps_cuda_batched", 128, 512, 64),    # the grouped strata of B=16
+    ("fps_cuda_batched", 2, 512, 1),       # one pick
+    ("fps_cuda_wide", 1, 4096, 1),
+    ("fps_cuda_batched", 3, 64, 64),       # every point
+    ("fps_cuda_batched", 2, 700, 700),
+    ("fps_cuda_wide", 1, 4096, 512),       # sa1 at B=1
+    ("fps_cuda_batched", 16, 4096, 512),   # sa1 at B=16
     ("fps_cuda_batched", 8, 8192, 64),     # the batched kernel's one-CTA bound
     ("fps_cuda_wide", 1, 1024, 128),
     ("fps_cuda_wide", 2, 1100, 48),        # ragged N
@@ -78,6 +108,9 @@ def test_kernel_matches_plain(card, name, B, N, npoint):
 
 
 @pytest.mark.parametrize("name,B,N,npoint", [
+    ("fps_cuda_wide", 1, 4096, 512),
+    ("fps_cuda_batched", 8, 4096, 512),
+    ("fps_cuda_batched", 8, 512, 128),
     ("fps_cuda_wide", 1, 20480, 2048),
     ("fps_cuda_batched", 8, 20480, 512),
     ("fps_cuda_blocked", 1, 20480, 2048),
@@ -91,23 +124,27 @@ def test_kernel_ties_match_plain(card, name, B, N, npoint, kind):
     assert torch.equal(got, fps.fps_plain(xyz, npoint))
 
 
-@pytest.mark.parametrize("name,B,kernel", [
-    ("fps_cuda_wide", 1, "fps_cuda_wide_cluster"),
-    ("fps_cuda_batched", 8, "fps_cuda_batched_cluster"),
+@pytest.mark.parametrize("name,B,N,npoint,kernel", [
+    ("fps_cuda_wide", 1, 20480, 4096, "fps_cuda_wide_cluster"),
+    ("fps_cuda_batched", 8, 20480, 4096, "fps_cuda_batched_cluster"),
+    ("fps_cuda_wide", 1, 4096, 512, "fps_cuda_wide"),
+    ("fps_cuda_batched", 8, 4096, 512, "fps_cuda_batched"),
+    ("fps_cuda_batched", 8, 512, 128, "fps_cuda_batched"),
 ])
 @pytest.mark.parametrize("kind", ["wrap", "equal"])
-def test_cluster_degenerate_clouds_match_plain(card, name, B, kernel, kind):
+def test_degenerate_clouds_match_plain(card, name, B, N, npoint, kernel,
+                                       kind):
     # every minimum reaches 0 after the distinct points: the picks from
-    # there on are all index 0
-    xyz = _tie_cloud(kind, B, 20480, 6, card)
+    # there on are all index 0, which the kernels write without sweeping
+    xyz = _tie_cloud(kind, B, N, 6, card)
     fps.reset_launch_counts()
-    got = getattr(fps, name)(xyz, 4096)
+    got = getattr(fps, name)(xyz, npoint)
     torch.cuda.synchronize()
     assert fps.launch_counts[kernel] == 1
-    want = fps.fps_plain(xyz, 4096)
+    want = fps.fps_plain(xyz, npoint)
     assert torch.equal(got, want)
-    distinct = 300 if kind == "wrap" else 1
-    assert not want[:, distinct:].any()
+    distinct = _wrap_distinct(N) if kind == "wrap" else 1
+    assert distinct < npoint and not want[:, distinct:].any()
 
 
 @pytest.mark.parametrize("name,B", [("fps_cuda_wide", 1),

@@ -69,21 +69,24 @@ def test_grouped_planes_matches_xla():
 
 def _degenerate_cloud(kind, B, N, distinct, seed):
     """A wrap-fill cloud (`distinct` points, then copies of its point 7, as
-    the OTF crop fills buckets with no in-ball pixel) or an all-equal
-    cloud."""
+    the OTF crop fills buckets with no in-ball pixel; "wrap0": copies of its
+    point 0, as the crop's FPS output hands sa1) or an all-equal cloud."""
     rng = np.random.RandomState(seed)
     xyz = np.repeat(rng.randn(B, 1, 3).astype(np.float32), N, axis=1)
-    if kind == "wrap":
+    if kind in ("wrap", "wrap0"):
+        copied = 7 if kind == "wrap" else 0
         xyz[:, :distinct] = rng.randn(B, distinct, 3)
-        xyz[:, distinct:] = xyz[:, 7:8]
+        xyz[:, distinct:] = xyz[:, copied:copied + 1]
     return xyz
 
 
 @pytest.mark.parametrize("pallas", [fps_pallas_t, fps_pallas_blocked_t])
-@pytest.mark.parametrize("kind", ["wrap", "equal"])
+@pytest.mark.parametrize("kind", ["wrap", "equal", "wrap0"])
 @pytest.mark.parametrize("B,N,npoint,distinct", [
     (1, 2048, 512, 60),
     (2, 1100, 64, 60),
+    (8, 512, 128, 60),    # fps_pallas_t: the packed layout (_fps_kernel)
+    (9, 512, 128, 60),    # ... padded to two tiles of 8 clouds
 ])
 def test_plain_fps_matches_pallas_on_degenerate_clouds(pallas, kind, B, N,
                                                        npoint, distinct):
@@ -93,7 +96,7 @@ def test_plain_fps_matches_pallas_on_degenerate_clouds(pallas, kind, B, N,
     np.testing.assert_array_equal(got, want)
     # once every distinct point is picked, every minimum is 0 and every
     # later pick is index 0
-    picked = min(distinct, npoint) if kind == "wrap" else 1
+    picked = min(distinct, npoint) if kind != "equal" else 1
     assert len(set(got[0, :picked])) == picked
     assert (got[:, picked:] == 0).all()
 
