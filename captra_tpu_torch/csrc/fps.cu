@@ -113,19 +113,56 @@
 // saved 0.06 us of a pick, so skipping rows could save little, and a
 // Gaussian cloud skips none.
 //
-// The blocked kernel keeps the xyz in device memory (at most 288 KiB, held
-// in L2) and, in shared memory, the running min, a bounding box and a
-// running max `bm` for each row of 128 contiguous points.  A pick updates
-// only the rows whose box could hold a point nearer than the row's max
-// (lower bound lb^2 * 0.999999 < bm, as fps_pallas.py:204-208; the rounding
-// of lb^2 is monotone in the point's own distance, so a skipped row is
-// bit-identical), then takes the argmax over `bm` (smallest row) and the
-// smallest lane of that row holding the max.  Work per pick falls with the
-// rows it touches; the latency chain is two __syncthreads() per pick.
+// The blocked kernel (fps_cuda_blocked, opt-in: clouds of up to 24576
+// points) skips the rows of a cloud that a pick cannot change.  What bounds
+// it on an H100: the same chain of dependent picks as the sweeps above,
+// plus, where rows cannot be skipped (a cloud in random order: every row's
+// box spans the cloud), the issue rate of the one SM that holds the cloud,
+// at about 10.5 instructions a point.  Measured on an NVIDIA H100 80GB HBM3
+// at 700 W (PERF.md): 0.49 ms a frame on the tracked OTF crop (0.79 us a
+// pick it needs; 4.0 ms with the xyz in device memory and two barriers a
+// pick) and 6.2 ms on a Gaussian [1, 20480] -> 4096 (1.5 us a pick; 19.2
+// before).  What the design does about it:
+//   * the cloud on chip: one CTA per cloud, each thread's points' x and
+//     running minima in registers (512 threads, up to 40 points a thread;
+//     256 threads above 20480 points), y and z in shared memory as
+//     lane-interleaved pairs (one 16-byte load for two points, no bank
+//     conflict);
+//   * rows of 256 contiguous points (a warp's 32 lanes x 8 consecutive
+//     points), row u in warp u mod 16 (mod 8 at 256 threads), so a coherent
+//     stretch of the cloud spreads over every warp.  Lane s of a warp holds
+//     its row s's box and the max of the row's minima: a pick is one
+//     lower-bound test a lane, one ballot, and the update of the flagged rows,
+//     each with one redux.sync for its max; when most rows are flagged, all
+//     rows in one pass and their maxima every 4th pick;
+//   * the argmax: each lane keeps the max of each of its spans' minima, so
+//     the warp's winner is two redux.sync (the max, then the first row and
+//     lane holding it) and a search of one span; that lane posts its key,
+//     index and coordinates into a double-buffered slot; one
+//     __syncthreads(), every warp reducing the slots with two redux.sync;
+//   * the data: the sweeps' exact early exit, which ends the tracked crop
+//     after its ~630 distinct points.
+// What holds a pick up, from clock64 stamps of its phases on the same card
+// (PERF.md): the warp-wide operations (redux.sync, ballot, shuffle, shared
+// loads), which an SM runs at about one every 2 cycles, so that their count
+// times the warps sets much of a pick; and on a cloud in random order the
+// update itself, at the SM's issue rate.
+// The skip rule is fps_pallas.py:204-208's: a row is updated when
+// lb2 = fl(fl(lb^2) * 0.999999) < the row's max, lb the distance from the
+// pick to the row's box, evaluated as d is: g = max(lo - c, c - hi, 0) on
+// each axis, then (gx^2 + gy^2) + gz^2.  A skipped row is bit-identical at
+// any row width: for a point p of the row, on each axis either g = 0, or
+// c < lo <= p and g = fl(lo - c) <= fl(p - c) (rounding to nearest is
+// monotone), or p <= hi < c and g = fl(c - hi) <= fl(c - p); so each g is at
+// most |fl(p - c)|, and the squares and the two sums, taken in the same
+// order, keep the order: fl(lb^2) <= d(p, c) as computed.  If lb2 >= the
+// row's max, then d(p, c) >= lb2 >= max >= dist(p) for every p of the row,
+// and fminf(dist(p), d(p, c)) = dist(p); a bound above the row's max, or
+// the factor, only flags more rows (the factor is the TPU kernel's).
 //
-// A ragged N is masked, not padded: in the single-CTA sweeps a slot past N
-// holds key 0 and can never win; the other kernels keep such points out of
-// every argmax.
+// A ragged N is masked, not padded: in the single-CTA sweeps and the
+// blocked kernel a slot past N holds key 0 and can never win; the cluster
+// kernel keeps such points out of every argmax.
 // Launches go on the caller's stream and allocate nothing; each entry point
 // returns cudaGetLastError() after its launch (or kNoClusterFits when no
 // cluster of the chosen shape can be resident on this card).
@@ -173,30 +210,23 @@ constexpr int kWideClusterMaxPoints = 131072;
 static_assert(kWideClusterMaxPoints <=
                   kMaxClusterCtas * kClusterThreads * kMaxItems,
               "the largest cloud must fit the largest cluster");
+// The blocked kernel's shape, from timing shapes on the card (PERF.md): one
+// CTA per cloud of at most kBlockedMaxPoints points (the TPU kernel's 24
+// tiles of 8 x 128), of kBlockedThreads threads up to kBlockedItems points a
+// thread (the OTF crop's 20480), of kBlockedBigThreads threads above (at
+// 512 threads, 48 points a thread spill; 255 registers hold 96); rows of
+// kBlockedRow points, kBlockedSpan a lane, a thread's points counted in
+// whole spans.
 constexpr int kBlockedThreads = 512;
-constexpr int kRowPoints = 128;      // one row of the blocked kernel
-constexpr int kBlockedMaxRows = 192; // 24 TPU tiles of 8 rows: 24576 points
+constexpr int kBlockedItems = 40;
+constexpr int kBlockedBigThreads = 256;
+constexpr int kBlockedSpan = 8;
+constexpr int kBlockedRow = 32 * kBlockedSpan;
+constexpr int kBlockedMaxPoints = 24576;
+static_assert(kBlockedItems % kBlockedSpan == 0, "whole spans");
+constexpr size_t kSmemPerBlock = 232448;  // 227 KB, the most a CTA takes
 constexpr int kNoClusterFits = -1;
 constexpr unsigned kFull = 0xffffffffu;
-
-// keep (v, i) unless (ov, oi) has a larger value, or the same value at a
-// smaller index
-__device__ __forceinline__ void take_better(float& v, int& i, float ov,
-                                            int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, off);
-    const int oi = __shfl_xor_sync(kFull, i, off);
-    take_better(v, i, ov, oi);
-  }
-}
 
 // d = (x-cx)^2 + (y-cy)^2 + (z-cz)^2, left to right, no contraction
 __device__ __forceinline__ float sq_dist(float x, float y, float z, float cx,
@@ -615,11 +645,35 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   cluster.sync();
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
+// ---- the blocked kernel -------------------------------------------------
+//
+// One cloud per CTA of THREADS threads (NW warps), ITEMS points a thread in
+// S = ITEMS / kBlockedSpan spans of kBlockedSpan contiguous points.  The 32
+// lanes' spans of one index make a row of kBlockedRow contiguous points:
+// row u is span u / NW of warp u % NW, so a coherent stretch of the cloud
+// spreads over every warp, and lane l of row u holds points
+// kBlockedRow * u + kBlockedSpan * l + i, i < kBlockedSpan.
+
+template <int THREADS, int ITEMS>
+struct BlockedShape {
+  static constexpr int kWarps = THREADS / 32;
+  static constexpr int kSpans = ITEMS / kBlockedSpan;  // rows a warp
+  static constexpr int kPoints = THREADS * ITEMS;      // the padded cloud
+  // dynamic shared memory: (y, z) of every point, then the row boxes
+  static constexpr size_t kSmem =
+      sizeof(float2) * kPoints + sizeof(float2) * 3 * kWarps * kSpans;
+  static_assert(ITEMS % kBlockedSpan == 0, "whole spans");
+  static_assert(kSpans <= 32, "a lane of the warp tests each of its rows");
+  static_assert(kSmem + 2 * kWarps * (sizeof(uint2) + sizeof(float4)) <=
+                    kSmemPerBlock,
+                "the cloud's y and z fit shared memory");
+};
+
+// (y, z) of points i and i + 1 (i even) of lane l's span of row u, as one
+// float4: row by row, then pair by pair, then lane by lane, so a warp
+// loading its lanes' pair reads 32 consecutive float4
+__device__ __forceinline__ int yz_pair(int u, int i, int l) {
+  return (u * (kBlockedSpan / 2) + i / 2) * 32 + l;
 }
 
 __device__ __forceinline__ float warp_min(float v) {
@@ -629,130 +683,236 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
-__device__ __forceinline__ int warp_min_int(int v) {
+__device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v = min(v, __shfl_xor_sync(kFull, v, off));
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
   return v;
 }
 
-// One CTA per cloud, n <= kBlockedMaxRows * kRowPoints.
-__global__ void __launch_bounds__(kBlockedThreads, 1)
+// Update the minima of the lane's span s (in row u) by the pick at c;
+// returns their max.
+template <int ITEMS>
+__device__ __forceinline__ float update_span(
+    int s, int u, int lane, const float4* __restrict__ yz,
+    const float (&px)[ITEMS], float (&dist)[ITEMS], float cx, float cy,
+    float cz) {
+  float m = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kBlockedSpan; i += 2) {
+    const float4 q = yz[yz_pair(u, i, lane)];
+    const int k = s * kBlockedSpan + i;
+    dist[k] = fminf(dist[k], sq_dist(px[k], q.x, q.y, cx, cy, cz));
+    dist[k + 1] =
+        fminf(dist[k + 1], sq_dist(px[k + 1], q.z, q.w, cx, cy, cz));
+    m = fmaxf(i ? m : dist[k], fmaxf(dist[k], dist[k + 1]));
+  }
+  return m;
+}
+
+// The first point i of the lane's span s0 (warp-uniform) whose minimum has
+// the bits `key`, and its x: a binary search down to a constant span, so
+// the arrays stay in registers.
+template <int LO, int HI, int ITEMS>
+__device__ __forceinline__ void span_first(int s0, const float (&px)[ITEMS],
+                                           const float (&dist)[ITEMS],
+                                           unsigned key, int& i0, float& x0) {
+  if constexpr (HI - LO == 1) {
+    i0 = 0;
+    x0 = 0.0f;
+#pragma unroll
+    for (int i = kBlockedSpan - 1; i >= 0; --i) {
+      if (__float_as_uint(dist[LO * kBlockedSpan + i]) == key) {
+        i0 = i;
+        x0 = px[LO * kBlockedSpan + i];
+      }
+    }
+  } else {
+    constexpr int MID = (LO + HI) / 2;
+    if (s0 < MID)
+      span_first<LO, MID>(s0, px, dist, key, i0, x0);
+    else
+      span_first<MID, HI>(s0, px, dist, key, i0, x0);
+  }
+}
+
+// x and the running minima of a thread's points sit in registers, y and z
+// in shared memory; lane s of a warp holds the box of the warp's row s and
+// the max of the row's minima (`rmax`), and each lane the max of each of
+// its spans' minima (`top`).  A pick: lane s tests row s; the warp updates
+// the rows that need it (one ballot), or all of them in one pass when most
+// do; the warp's winner is the max of the tops (one redux.sync), its first
+// (row, lane) holding it (one more) and that span's first point holding
+// it; the lane holding it posts it with its coordinates into a
+// double-buffered slot; behind one __syncthreads() every warp reduces the
+// slots (two redux.sync) and reads the winner's coordinates from its slot.
+template <int THREADS, int ITEMS>
+__global__ void __launch_bounds__(THREADS, 1)
     fps_blocked_kernel(const float* __restrict__ xyz, int n, int npoint,
                        int* __restrict__ out) {
-  constexpr int kWarps = kBlockedThreads / 32;
-  constexpr int kLanesPerRow = kRowPoints / 32;
-  extern __shared__ float dist[];  // [rows * 128] running minima
-  __shared__ float bm[kBlockedMaxRows];      // running max of each row
-  __shared__ float bb[6][kBlockedMaxRows];   // xmin xmax ymin ymax zmin zmax
+  using Shape = BlockedShape<THREADS, ITEMS>;
+  constexpr int NW = Shape::kWarps;
+  constexpr int S = Shape::kSpans;
+  constexpr int IT = kBlockedSpan;
+  constexpr int ROW = kBlockedRow;
+  extern __shared__ float4 yz[];  // [kPoints / 2], then the boxes
+  float2* box = reinterpret_cast<float2*>(yz + Shape::kPoints / 2);
+  __shared__ uint2 red[2][NW];    // each warp's winner: (key, index)
+  __shared__ float4 pos[2][NW];   // and its (x, y, z, -)
   const size_t b = blockIdx.x;
   const float* p = xyz + b * 3 * n;
-  int* cout = out + b * npoint;
-  const int rows = (n + kRowPoints - 1) / kRowPoints;
+  int* o = out + b * npoint;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  for (int j = threadIdx.x; j < rows * kRowPoints; j += kBlockedThreads)
-    dist[j] = j < n ? kInitDist : -1.0f;
-  // per-row boxes over the row's valid points, once
-  for (int r = warp; r < rows; r += kWarps) {
+  // A point past n is (0, 0, 0) at distance +0 and left out of its row's
+  // box: its key stays 0, so it can only tie a real point at +0, and then
+  // index 0 (whose own minimum is +0 from pick 0 on) is smaller.  A row
+  // with no point keeps rmax 0, which no lower bound is below.
+  float px[ITEMS], dist[ITEMS], top[S];
+  float rmax = 0.0f;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int u = s * NW + warp;
     float lo[3] = {FLT_MAX, FLT_MAX, FLT_MAX};
     float hi[3] = {-FLT_MAX, -FLT_MAX, -FLT_MAX};
 #pragma unroll
-    for (int q = 0; q < kLanesPerRow; ++q) {
-      const int j = r * kRowPoints + lane + 32 * q;
-      if (j < n) {
+    for (int i = 0; i < IT; i += 2) {
+      float v[2][3] = {};
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float v = p[3 * static_cast<size_t>(j) + c];
-          lo[c] = fminf(lo[c], v);
-          hi[c] = fmaxf(hi[c], v);
+      for (int h = 0; h < 2; ++h) {
+        const int k = s * IT + i + h;
+        const int j = u * ROW + lane * IT + i + h;
+        dist[k] = 0.0f;
+        if (j < n) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            v[h][c] = p[3 * static_cast<size_t>(j) + c];
+            lo[c] = fminf(lo[c], v[h][c]);
+            hi[c] = fmaxf(hi[c], v[h][c]);
+          }
+          dist[k] = kInitDist;
         }
+        px[k] = v[h][0];
+        // set point by point: so written, ptxas fits <256, 96> in its 255
+        // registers without spilling
+        if (i + h == 0) top[s] = 0.0f;
+        if (j < n) top[s] = kInitDist;
       }
+      yz[yz_pair(u, i, lane)] =
+          make_float4(v[0][1], v[0][2], v[1][1], v[1][2]);
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      lo[c] = warp_min(lo[c]);
-      hi[c] = warp_max(hi[c]);
+      const float l = warp_min(lo[c]);
+      const float h = warp_max(hi[c]);
+      if (lane == 0) box[(c * NW + warp) * S + s] = make_float2(l, h);
     }
-    if (lane == 0) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        bb[2 * c][r] = lo[c];
-        bb[2 * c + 1][r] = hi[c];
-      }
-      bm[r] = kInitDist;
-    }
+    if (lane == s && u * ROW < n) rmax = kInitDist;
   }
   __syncthreads();
+  float cx = p[0];
+  float cy = p[1];
+  float cz = p[2];
 
-  int far = 0;
+  unsigned far = 0;
   for (int it = 0; it < npoint; ++it) {
-    if (threadIdx.x == 0) cout[it] = far;
+    if (threadIdx.x == 0) o[it] = static_cast<int>(far);
     if (it + 1 == npoint) break;
-    const size_t f = 3 * static_cast<size_t>(far);
-    const float px = p[f];
-    const float py = p[f + 1];
-    const float pz = p[f + 2];
-    // 1. lower-bound test: lane k of warp w tests row w + kWarps * k
-    const int rt = warp + kWarps * lane;
+    // 1. lane s: row s's lower bound (see the header) against its max
     bool need = false;
-    if (rt < rows) {
-      const float dx = fmaxf(fmaxf(__fsub_rn(bb[0][rt], px),
-                                   __fsub_rn(px, bb[1][rt])), 0.0f);
-      const float dy = fmaxf(fmaxf(__fsub_rn(bb[2][rt], py),
-                                   __fsub_rn(py, bb[3][rt])), 0.0f);
-      const float dz = fmaxf(fmaxf(__fsub_rn(bb[4][rt], pz),
-                                   __fsub_rn(pz, bb[5][rt])), 0.0f);
+    if (lane < S) {
+      const float2 bx = box[(0 * NW + warp) * S + lane];
+      const float2 by = box[(1 * NW + warp) * S + lane];
+      const float2 bz = box[(2 * NW + warp) * S + lane];
+      const float gx =
+          fmaxf(fmaxf(__fsub_rn(bx.x, cx), __fsub_rn(cx, bx.y)), 0.0f);
+      const float gy =
+          fmaxf(fmaxf(__fsub_rn(by.x, cy), __fsub_rn(cy, by.y)), 0.0f);
+      const float gz =
+          fmaxf(fmaxf(__fsub_rn(bz.x, cz), __fsub_rn(cz, bz.y)), 0.0f);
       const float lb2 = __fmul_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                    __fmul_rn(dz, dz)),
+          __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
+                    __fmul_rn(gz, gz)),
           0.999999f);
-      need = lb2 < bm[rt];
+      need = lb2 < rmax;
     }
-    // 2. the warp updates its rows that need it and their row max
-    unsigned todo = __ballot_sync(kFull, need);
-    while (todo) {
-      const int r = warp + kWarps * (__ffs(todo) - 1);
-      todo &= todo - 1;
-      float rmax = -1.0f;
+    // 2. the rows that need it.  Updating a row that does not need it
+    //    leaves it as it was, so when most do, all rows go in one pass
+    //    whose chains overlap, and the rows' maxima are taken every 4th
+    //    pick only: in between, each rmax is an upper bound of its row's
+    //    max, which flags no fewer rows than the max itself.
+    const unsigned todo = __ballot_sync(kFull, need);
+    if (2 * __popc(todo) > S) {
 #pragma unroll
-      for (int q = 0; q < kLanesPerRow; ++q) {
-        const int j = r * kRowPoints + lane + 32 * q;
-        if (j < n) {
-          const size_t g = 3 * static_cast<size_t>(j);
-          const float nd = fminf(dist[j],
-                                 sq_dist(p[g], p[g + 1], p[g + 2], px, py,
-                                         pz));
-          dist[j] = nd;
-          rmax = fmaxf(rmax, nd);
+      for (int s = 0; s < S; ++s)
+        top[s] = update_span(s, s * NW + warp, lane, yz, px, dist, cx, cy,
+                             cz);
+      if ((it & 3) == 0) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const unsigned r = __reduce_max_sync(kFull, __float_as_uint(top[s]));
+          if (lane == s) rmax = __uint_as_float(r);
         }
       }
-      rmax = warp_max(rmax);
-      if (lane == 0) bm[r] = rmax;
-    }
-    __syncthreads();
-    // 3. argmax over the row maxima, smallest row first (every warp)
-    float m = -1.0f;
-    int rbest = INT_MAX;
-    for (int r = lane; r < rows; r += 32) {
-      if (bm[r] > m) {
-        m = bm[r];
-        rbest = r;
+    } else {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        if (todo & (1u << s)) {
+          top[s] = update_span(s, s * NW + warp, lane, yz, px, dist, cx, cy,
+                               cz);
+          const unsigned r = __reduce_max_sync(kFull, __float_as_uint(top[s]));
+          if (lane == s) rmax = __uint_as_float(r);
+        }
       }
     }
-    warp_argmax(m, rbest);
-    // 4. the smallest lane of that row holding the max
-    int lbest = INT_MAX;
+    // 3. the warp's winner: the max of the tops, the first (row, lane)
+    //    holding it (rows, then lanes, in index order), that lane's first
+    //    point of the row holding it
+    float t = top[0];
 #pragma unroll
-    for (int q = kLanesPerRow - 1; q >= 0; --q) {
-      const int l = lane + 32 * q;
-      const int j = rbest * kRowPoints + l;
-      if (j < n && dist[j] == m) lbest = l;
+    for (int s = 1; s < S; ++s) t = fmaxf(t, top[s]);
+    const unsigned wkey = __reduce_max_sync(kFull, __float_as_uint(t));
+    unsigned rank = kNoIndex;
+#pragma unroll
+    for (int s = S - 1; s >= 0; --s)
+      if (__float_as_uint(top[s]) == wkey) rank = 32 * s + lane;
+    rank = __reduce_min_sync(kFull, rank);
+    const int s0 = static_cast<int>(rank >> 5);
+    int i0;
+    float x0;
+    span_first<0, S>(s0, px, dist, wkey, i0, x0);
+    // 4. the CTA's winner: the lane holding the warp's posts it; behind one
+    //    __syncthreads() every warp reduces the keys and reads the
+    //    coordinates from the slot of the warp whose row holds the winner.
+    //    Two buffers: a warp that races ahead into pick it+1 writes the
+    //    other one, and cannot reach pick it+2 before every warp has
+    //    passed pick it+1's barrier, i.e. read this one.
+    const int buf = it & 1;
+    if (lane == static_cast<int>(rank & 31)) {
+      const int u0 = s0 * NW + warp;
+      const float4 q = yz[yz_pair(u0, i0, lane)];
+      red[buf][warp] = make_uint2(wkey, static_cast<unsigned>(
+                                            u0 * ROW + lane * IT + i0));
+      pos[buf][warp] = make_float4(x0, i0 & 1 ? q.z : q.x,
+                                   i0 & 1 ? q.w : q.y, 0.0f);
     }
-    far = rbest * kRowPoints + warp_min_int(lbest);
-    // every warp has read bm and dist before the next pick writes them
     __syncthreads();
+    const uint2 w = lane < NW ? red[buf][lane] : make_uint2(0u, kNoIndex);
+    unsigned key = w.x;
+    unsigned idx = w.y;
+    warp_argmax_key(key, idx);
+    far = idx;
+    if (key == 0) {
+      // every minimum is +0: point 0's is, so this pick is index 0, and no
+      // later pick changes a minimum, so every later pick is index 0 too
+      for (int j = it + 1 + threadIdx.x; j < npoint; j += THREADS) o[j] = 0;
+      break;
+    }
+    const float4 c = pos[buf][(far / ROW) % NW];
+    cx = c.x;
+    cy = c.y;
+    cz = c.z;
   }
 }
 
@@ -915,6 +1075,52 @@ int dispatch_cluster(const void* xyz, void* out, int b, int n, int npoint,
   return launch_cluster<kMaxItems>(x, o, b, n, npoint, csize, s);
 }
 
+template <int THREADS, int ITEMS>
+cudaError_t launch_blocked(const float* xyz, int* out, int b, int n,
+                           int npoint, cudaStream_t stream) {
+  return launch_with_smem(fps_blocked_kernel<THREADS, ITEMS>, b, THREADS,
+                          BlockedShape<THREADS, ITEMS>::kSmem, stream, xyz, n,
+                          npoint, out);
+}
+
+// Points a thread that hold n points in whole spans.
+constexpr int blocked_items(int n, int threads) {
+  return (n + threads * kBlockedSpan - 1) / (threads * kBlockedSpan) *
+         kBlockedSpan;
+}
+
+// ITEMS points a thread: the first multiple of kBlockedSpan from ITEMS up
+// to MAX that holds n points.
+template <int THREADS, int ITEMS, int MAX>
+cudaError_t dispatch_items(const float* xyz, int* out, int b, int n,
+                           int npoint, cudaStream_t s) {
+  if constexpr (ITEMS < MAX)
+    if (n > THREADS * ITEMS)
+      return dispatch_items<THREADS, ITEMS + kBlockedSpan, MAX>(
+          xyz, out, b, n, npoint, s);
+  return launch_blocked<THREADS, ITEMS>(xyz, out, b, n, npoint, s);
+}
+
+// One CTA per cloud: kBlockedThreads threads up to kBlockedItems points a
+// thread, kBlockedBigThreads above.
+int dispatch_blocked(const void* xyz, void* out, int b, int n, int npoint,
+                     void* stream) {
+  if (b <= 0 || n <= 0 || npoint <= 0 || n > kBlockedMaxPoints)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* x = static_cast<const float*>(xyz);
+  int* o = static_cast<int*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int kBig = kBlockedBigThreads;
+  if (n > kBlockedThreads * kBlockedItems)
+    return static_cast<int>(
+        dispatch_items<
+            kBig, blocked_items(kBlockedThreads * kBlockedItems + 1, kBig),
+            blocked_items(kBlockedMaxPoints, kBig)>(x, o, b, n, npoint, s));
+  return static_cast<int>(
+      dispatch_items<kBlockedThreads, kBlockedSpan, kBlockedItems>(
+          x, o, b, n, npoint, s));
+}
+
 }  // namespace
 
 extern "C" {
@@ -927,7 +1133,9 @@ int captra_fps_batched_cluster_max_points() {
   return kBatchedClusterMaxPoints;
 }
 int captra_fps_wide_cluster_max_points() { return kWideClusterMaxPoints; }
-int captra_fps_blocked_max_points() { return kBlockedMaxRows * kRowPoints; }
+int captra_fps_blocked_max_points() { return kBlockedMaxPoints; }
+// Points in a row of the blocked kernel (the unit its skip rule tests).
+int captra_fps_blocked_row_points() { return kBlockedRow; }
 
 // The cluster shape each entry gives an n-point cloud: threads per CTA, and
 // CTAs per cluster (0: too big).
@@ -964,18 +1172,7 @@ int captra_fps_wide_cluster(const void* xyz, void* out, int b, int n,
 
 int captra_fps_blocked(const void* xyz, void* out, int b, int n, int npoint,
                        void* stream) {
-  if (b <= 0 || n <= 0 || npoint <= 0 || n > kBlockedMaxRows * kRowPoints)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = (n + kRowPoints - 1) / kRowPoints;
-  const size_t smem = sizeof(float) * kRowPoints * static_cast<size_t>(rows);
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_blocked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fps_blocked_kernel<<<b, kBlockedThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xyz), n, npoint, static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return dispatch_blocked(xyz, out, b, n, npoint, stream);
 }
 
 const char* captra_cuda_error_string(int err) {

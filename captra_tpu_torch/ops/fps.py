@@ -8,8 +8,11 @@ cluster variant, built from `csrc/fps.cu` at first use:
   fps_cuda_wide     replaces `_fps_wide_kernel` (entry `fps_pallas_wide_t`):
                     for B < 8 and N >= 1024.
   fps_cuda_blocked  replaces `_fps_blocked_kernel` (entry
-                    `fps_pallas_blocked_t`): lazy-update FPS over rows of 128
-                    points, opt-in with CAPTRA_FPS_BLOCKED=1.
+                    `fps_pallas_blocked_t`): lazy-update FPS, one CTA per
+                    cloud of up to 24576 points held on chip, a pick
+                    updating only the rows of 256 contiguous points whose
+                    box can hold a nearer point; opt-in with
+                    CAPTRA_FPS_BLOCKED=1.
 
 Both sweep a cloud of up to 512 points in one warp (4 clouds a CTA) and a
 larger one in one CTA of 512 threads (1024 above 8192 points), points and
@@ -87,8 +90,10 @@ def _lib() -> ctypes.CDLL:
                    lib.captra_fps_wide_cluster_size):
             fn.argtypes = [ctypes.c_int]
             fn.restype = ctypes.c_int
-        lib.captra_fps_cluster_threads.argtypes = []
-        lib.captra_fps_cluster_threads.restype = ctypes.c_int
+        for fn in (lib.captra_fps_cluster_threads,
+                   lib.captra_fps_blocked_row_points):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
         lib.captra_cuda_error_string.argtypes = [ctypes.c_int]
         lib.captra_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -118,6 +123,12 @@ def cluster_size(kernel: str, n: int) -> int:
 def cluster_threads() -> int:
     """Threads per CTA of the cluster launches."""
     return _lib().captra_fps_cluster_threads()
+
+
+def blocked_row_points() -> int:
+    """Points in a row of the blocked kernel: the contiguous points whose
+    box its skip rule tests against their max."""
+    return _lib().captra_fps_blocked_row_points()
 
 
 def _check(xyz: torch.Tensor, npoint: int, kernel: str) -> None:
@@ -182,8 +193,11 @@ def fps_cuda_wide(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 
 def fps_cuda_blocked(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """CUDA lazy-update FPS, one CTA per cloud: xyz [B, N <= 24576, 3] ->
-    int32 [B, npoint]; raises above its bound."""
+    """CUDA lazy-update FPS: xyz [B, N <= 24576, 3] -> int32 [B, npoint];
+    raises above its bound.  One CTA per cloud (512 threads, 256 above
+    20480 points), x and the running minima in registers, y and z in shared
+    memory; a pick skips every row of `blocked_row_points()` points whose
+    box lies no nearer than the row's max (exact: see csrc/fps.cu)."""
     _check(xyz, npoint, "fps_cuda_blocked")
     bound = max_points("fps_cuda_blocked")
     if xyz.shape[1] > bound:

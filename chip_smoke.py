@@ -11,7 +11,9 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
   2. kernels -- each FPS kernel against the plain PyTorch FPS on the card,
                 at the shapes the main paths give it, on tie clouds and on
                 the OTF crop's own working set: indices must be equal.
-                Kernel and plain times from CUDA events.
+                Kernel and plain times from CUDA events; for the blocked
+                kernel, the rows its skip rule updates a pick (a plain
+                replay on the card).
   3. slice   -- the main path: NOCS bottle tracking at full width (4096
                 points, the `pointnet2_camera` backbone), random weights
                 from a seed, synthetic trajectories of T frames, at B = 1
@@ -186,6 +188,10 @@ TIE_CASES = (
     ("fps_cuda_blocked", 1, "grid", 2048, 20480),
     ("fps_cuda_blocked", 1, "dup", 2048, 20480),
     ("fps_cuda_blocked", 2, "dup", 512, 9000),
+    ("fps_cuda_blocked", 1, "wrap", 4096, 20480),
+    ("fps_cuda_blocked", 1, "equal", 4096, 20480),
+    ("fps_cuda_blocked", 1, "wrap", 4096, 24576),
+    ("fps_cuda_blocked", 2, "equal", 4096, 24576),
 )
 
 
@@ -228,6 +234,53 @@ def picks_before_zero(idx: torch.Tensor) -> list[int]:
 def sweeps_needed(idx: torch.Tensor) -> int:
     """`picks_before_zero`, summed over the clouds."""
     return sum(picks_before_zero(idx))
+
+
+def rows_updated(xyz: torch.Tensor, idx: torch.Tensor, row: int) -> float:
+    """Mean rows of `row` contiguous points a pick that the blocked kernel's
+    skip rule updates, replayed in plain PyTorch on one cloud xyz [N, 3]
+    along its plain FPS picks idx [npoint]: a row is updated when the lower
+    bound lb^2 * 0.999999 from the pick to the row's box is below the max of
+    the row's exact running minima.  The replay stops where the kernel's
+    early exit does."""
+    N = xyz.shape[0]
+    R = -(-N // row)
+    pad = R * row - N
+    p = torch.cat([xyz, xyz[:1].expand(pad, 3)]).view(R, row, 3)
+    valid = (torch.arange(R * row, device=xyz.device) < N).view(R, row, 1)
+    lo = torch.where(valid, p, torch.inf).amin(1)
+    hi = torch.where(valid, p, -torch.inf).amax(1)
+    x, y, z = xyz.unbind(-1)
+    dist = torch.full((N,), 1e10, device=xyz.device)
+    bm = torch.full((R,), 1e10, device=xyz.device)
+    counts = []
+    for it in range(idx.shape[0] - 1):
+        c = xyz[idx[it]]
+        lb = torch.clamp_min(torch.maximum(lo - c, c - hi), 0.0)
+        lb2 = (lb[:, 0] * lb[:, 0] + lb[:, 1] * lb[:, 1]
+               + lb[:, 2] * lb[:, 2]) * 0.999999
+        counts.append((lb2 < bm).sum())
+        dx, dy, dz = x - c[0], y - c[1], z - c[2]
+        dist = torch.minimum(dist, dx * dx + dy * dy + dz * dz)
+        bm = torch.cat([dist, dist.new_zeros(pad)]).view(R, row).amax(1)
+        if not bool(bm.max() > 0):
+            break
+    return float(torch.stack(counts).float().mean())
+
+
+def log_rows_updated(fps, clouds, wants, where: str) -> float:
+    """Mean rows the blocked kernel's skip rule updates a pick on one-cloud
+    inputs `clouds` [1, N, 3] along their plain picks `wants`, over every
+    pick before the early exit (`rows_updated`, rows as the kernel cuts
+    them), logged with the kernel's rows a cloud."""
+    row = fps.blocked_row_points()
+    means = [rows_updated(xyz[0], want[0], row)
+             for xyz, want in zip(clouds, wants)]
+    mean = float(np.mean(means))
+    rows = -(-clouds[0].shape[1] // row)
+    log(f"kernel fps_cuda_blocked {where}: {mean:.2f} of {rows} rows of "
+        f"{row} points updated a pick (plain replay of the skip rule)")
+    return mean
 
 
 def fps_bound(B: int, N: int, npoint: int, sweeps: int | None = None):
@@ -329,6 +382,9 @@ def _check_case(fps, results, fn, xyz, npoint, where):
                                 plain_ms=plain_ms, bound_ms=bound_ms,
                                 bound_by=bound_by, sweeps=sweeps,
                                 us_per_pick=ms * 1e3 / (npoint - 1)))
+    if kernel == "fps_cuda_blocked" and B == 1:
+        results[kernel][-1]["rows_updated"] = log_rows_updated(
+            fps, [xyz], [want], f"[{B},{N}]->{npoint} ({where})")
     log(f"kernel {kernel} [{B},{N}]->{npoint} ({where}): equal; "
         f"{ms:.4f} ms ({ms * 1e3 / (npoint - 1):.3f} us a pick), plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}, {sweeps} "
@@ -376,6 +432,10 @@ def check_video(fps, results, wrappers, clouds, npoint, run, frames,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms / F,
             bound_by=bound_by, sweeps=sweeps / F, frames=F, calls=calls,
             us_per_pick=ms * 1e3 * F / calls / (npoint - 1)))
+        if kernel == "fps_cuda_blocked" and B == 1:
+            results[kernel][-1]["rows_updated"] = log_rows_updated(
+                fps, clouds, wants, f"[{B},{N}]->{npoint} (otf {run}, "
+                f"{calls} tracked frames)")
         log(f"kernel {kernel} [{B},{N}]->{npoint} ({where}, otf {run}): "
             f"equal on all {calls} calls; {ms:.4f} ms a frame "
             f"({ms * 1e3 * F / calls / (npoint - 1):.3f} us a pick), plain "

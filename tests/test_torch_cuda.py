@@ -7,6 +7,7 @@ only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -o addopts="" -q
 """
+import fps_edge_clouds
 import numpy as np
 import pytest
 import torch
@@ -98,6 +99,14 @@ _WIDE_THRESHOLDS = (8192, 12288)
     ("fps_cuda_blocked", 2, 24576, 1024),  # its bound
     ("fps_cuda_blocked", 1, 9000, 512),    # ragged last row
     ("fps_cuda_blocked", 3, 1100, 64),
+    # every points-a-thread step of the blocked kernel (512 threads, 8 more
+    # points a thread each 4096 points, up to 20480; 256 threads at 88 and
+    # 96 above; rows of 256), one point past it, and its bound
+    *[("fps_cuda_blocked", 2, n + d, 128)
+      for n in (4096, 8192, 12288, 16384, 20480, 22528) for d in (0, 1)],
+    ("fps_cuda_blocked", 2, 24575, 128),
+    ("fps_cuda_blocked", 1, 256, 64),      # one row
+    ("fps_cuda_blocked", 1, 257, 64),
 ])
 def test_kernel_matches_plain(card, name, B, N, npoint):
     xyz = _cloud(B + N, B, N, card)
@@ -130,6 +139,8 @@ def test_kernel_ties_match_plain(card, name, B, N, npoint, kind):
     ("fps_cuda_wide", 1, 4096, 512, "fps_cuda_wide"),
     ("fps_cuda_batched", 8, 4096, 512, "fps_cuda_batched"),
     ("fps_cuda_batched", 8, 512, 128, "fps_cuda_batched"),
+    ("fps_cuda_blocked", 1, 20480, 4096, "fps_cuda_blocked"),
+    ("fps_cuda_blocked", 2, 9000, 512, "fps_cuda_blocked"),
 ])
 @pytest.mark.parametrize("kind", ["wrap", "equal"])
 def test_degenerate_clouds_match_plain(card, name, B, N, npoint, kernel,
@@ -145,6 +156,23 @@ def test_degenerate_clouds_match_plain(card, name, B, N, npoint, kernel,
     assert torch.equal(got, want)
     distinct = _wrap_distinct(N) if kind == "wrap" else 1
     assert distinct < npoint and not want[:, distinct:].any()
+
+
+@pytest.mark.parametrize("order", ["scan", "shuffled"])
+def test_blocked_kernel_at_the_skip_edge(card, order):
+    # rows whose lower bound at pick 1 lies on their max or one ulp from it
+    # (tests/fps_edge_clouds.py); shuffled, the same points in incoherent
+    # rows
+    clouds = []
+    for seed in (0, 1):
+        xyz = fps_edge_clouds.skip_edge_cloud(seed)
+        if order == "shuffled":
+            xyz = xyz[np.random.RandomState(seed).permutation(len(xyz))]
+        clouds.append(xyz)
+    xyz = torch.from_numpy(np.stack(clouds)).to(card)
+    got = fps.fps_cuda_blocked(xyz, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps.fps_plain(xyz, 256))
 
 
 @pytest.mark.parametrize("name,B", [("fps_cuda_wide", 1),

@@ -5,6 +5,7 @@ launches, fps_cuda_blocked) are held against this same plain version on the
 card by tests/test_torch_cuda.py and chip_smoke.py; here the plain version
 is held against the Pallas kernels in interpret mode, in all three of their
 layouts, and against the XLA loop, exact and grouped."""
+import fps_edge_clouds
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -99,6 +100,27 @@ def test_plain_fps_matches_pallas_on_degenerate_clouds(pallas, kind, B, N,
     picked = min(distinct, npoint) if kind != "equal" else 1
     assert len(set(got[0, :picked])) == picked
     assert (got[:, picked:] == 0).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("order", ["scan", "shuffled"])
+def test_plain_fps_matches_blocked_pallas_at_the_skip_edge(order, seed):
+    # at pick 1, the lower bound of every row inside the cloud's blocks is
+    # exactly on the row's max, one ulp above it or one ulp below it, for
+    # the TPU kernel's rows of 128 points and any aligned row of up to 512;
+    # shuffled, the same points make incoherent rows
+    xyz = fps_edge_clouds.skip_edge_cloud(seed)
+    if order == "shuffled":
+        xyz = xyz[np.random.RandomState(seed).permutation(len(xyz))]
+    else:
+        for row in (32, 128, 256, 512):
+            assert set(fps_edge_clouds.edge_offsets(xyz, row)) == {-1, 0, 1}
+    want = np.asarray(fps_pallas_blocked_t(_planes(xyz[None]), 256,
+                                           interpret=True))
+    got = fps.fps_plain(torch.from_numpy(xyz[None].copy()), 256).numpy()
+    np.testing.assert_array_equal(got, want)
+    if order == "scan":
+        assert list(got[0, :2]) == [0, 1]
 
 
 def test_ties_take_the_smallest_index():
