@@ -1,5 +1,12 @@
 """PointNet++ MSG backbone, channels-last (counterpart of
-`captra_tpu/models/backbone.py`)."""
+`captra_tpu/models/backbone.py`).
+
+`dtype` (None: float32) is every PointMLP's compute dtype.  xyz stays
+float32 throughout, so FPS, ball query and 3-NN see the float32 geometry
+and pick the same indices in every dtype.  Where float32 xyz or 3-NN
+weights meet features of the compute dtype (`torch.cat`, the
+interpolation's product), the result is float32, as `jnp` promotes; the
+next PointMLP casts it back."""
 from __future__ import annotations
 
 import torch
@@ -15,14 +22,15 @@ class SetAbstractionMsg(nn.Module):
     fps_mode "grouped" takes the stratified 8-way FPS approximation."""
 
     def __init__(self, cfg: SAMsgCfg, in_feat_dim: int, norm: str = "bn",
-                 bn_momentum: float = 0.9, fps_mode: str = "exact"):
+                 bn_momentum: float = 0.9, fps_mode: str = "exact",
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.cfg = cfg
         self.fps_mode = fps_mode
         for i, mlp in enumerate(cfg.mlp_list):
             self.add_module(f"scale_{i}", PointMLP(
                 in_feat_dim + 3, mlp, norm=norm, final_acti="relu",
-                last_norm=True, bn_momentum=bn_momentum))
+                last_norm=True, bn_momentum=bn_momentum, dtype=dtype))
         self.out_dim = sum(m[-1] for m in cfg.mlp_list)
 
     def forward(self, xyz, feats):
@@ -42,10 +50,11 @@ class SetAbstractionAll(nn.Module):
     """Group-all global stage: xyz FIRST, then features."""
 
     def __init__(self, mlp: tuple, in_dim: int, norm: str = "bn",
-                 bn_momentum: float = 0.9):
+                 bn_momentum: float = 0.9, dtype: torch.dtype | None = None):
         super().__init__()
         self.mlp = PointMLP(in_dim, mlp, norm=norm, final_acti="relu",
-                            last_norm=True, bn_momentum=bn_momentum)
+                            last_norm=True, bn_momentum=bn_momentum,
+                            dtype=dtype)
 
     def forward(self, xyz, feats):
         g = xyz if feats is None else torch.cat([xyz, feats], dim=-1)
@@ -59,10 +68,11 @@ class FeaturePropagation(nn.Module):
     point (S == 1) broadcasts instead."""
 
     def __init__(self, mlp: tuple, in_dim: int, norm: str = "bn",
-                 bn_momentum: float = 0.9):
+                 bn_momentum: float = 0.9, dtype: torch.dtype | None = None):
         super().__init__()
         self.mlp = PointMLP(in_dim, mlp, norm=norm, final_acti="relu",
-                            last_norm=True, bn_momentum=bn_momentum)
+                            last_norm=True, bn_momentum=bn_momentum,
+                            dtype=dtype)
 
     def forward(self, xyz1, xyz2, feats1, feats2):
         if xyz2.shape[1] == 1:
@@ -85,11 +95,12 @@ class PointNet2Msg(nn.Module):
 
     def __init__(self, cfg: PointNetCfg, out_dim: int = 128,
                  use_xyz_feat: bool = False, norm: str = "bn",
-                 bn_momentum: float = 0.9, fps_mode: str = "exact"):
+                 bn_momentum: float = 0.9, fps_mode: str = "exact",
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.use_xyz_feat = use_xyz_feat
         l0 = 3 if use_xyz_feat else 0
-        kw = dict(norm=norm, bn_momentum=bn_momentum)
+        kw = dict(norm=norm, bn_momentum=bn_momentum, dtype=dtype)
         self.sa1 = SetAbstractionMsg(cfg.sa1, l0, fps_mode=fps_mode, **kw)
         self.sa2 = SetAbstractionMsg(cfg.sa2, self.sa1.out_dim,
                                      fps_mode=fps_mode, **kw)

@@ -6,6 +6,13 @@
 named after the flax tree (`dense_0`, `norm_0`, ...) so that
 `training/convert.py` is a plain walk over it.
 
+Compute dtype (`network/compute_dtype`, float32 | bfloat16 | float16), as
+flax's `dtype` with float32 `param_dtype`: `PointMLP` casts its input to
+the dtype; each Linear computes in it from float32 parameters cast at the
+call; BatchNorm and GroupNorm normalise in float32 (float32 running or
+group statistics, flax's `_normalize` promotion) and return the dtype;
+activations run in it.
+
 Momentum convention for later training: flax BatchNorm keeps
 `running = m * running + (1 - m) * batch` (m = `bn_momentum`, 0.9), torch
 keeps `running += m_torch * (batch - running)`; the port stores
@@ -27,7 +34,9 @@ _ACTIVATIONS = {
 
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over the trailing channel of [B, ..., C] (eps 1e-5, as
-    flax's default)."""
+    flax's default).  A bfloat16 / float16 input is normalised in float32
+    from the float32 statistics and parameters and returned in its own
+    dtype (torch's mixed-dtype batch norm: flax's order and rounding)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
@@ -43,7 +52,9 @@ class GroupNorm(nn.Module):
     E[x^2] - E[x]^2, cancels in float32 on groups whose variance is small
     next to their mean (measured: 1e-3 relative error at var 2e-5); the
     two-pass form keeps the port near the exact value, so its distance to
-    the JAX output is about the JAX error alone."""
+    the JAX output is about the JAX error alone.  Statistics and the
+    normalisation run in float32 whatever the input's dtype (flax's
+    default), and the output takes the input's dtype."""
 
     def __init__(self, channels: int, group_size: int = 2, eps: float = 1e-5):
         super().__init__()
@@ -58,6 +69,8 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C = x.shape[0], x.shape[-1]
         G, gs = C // self.group_size, self.group_size
+        dtype = x.dtype
+        x = x.float()
         g = x.reshape(B, -1, G, gs)
         mean = g.mean(dim=(1, 3), keepdim=True)              # [B, 1, G, 1]
         var = torch.square(g - mean).mean(dim=(1, 3), keepdim=True)
@@ -65,7 +78,7 @@ class GroupNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps).expand(B, 1, G, gs).reshape(
             B, 1, C) * self.weight
         y = (x.reshape(B, -1, C) - mean) * mul + self.bias
-        return y.reshape(x.shape)
+        return y.reshape(x.shape).to(dtype)
 
 
 class PointMLP(nn.Module):
@@ -73,12 +86,14 @@ class PointMLP(nn.Module):
 
     dims: all layer widths including the output layer.  norm 'bn' | 'gn' |
     'none' applies to every layer except the last (unless last_norm);
-    final_acti applies to the last layer only, relu to the others."""
+    final_acti applies to the last layer only, relu to the others.  dtype
+    (None: float32) is the compute dtype; parameters stay float32."""
 
     def __init__(self, in_dim: int, dims: Sequence[int], norm: str = "bn",
                  final_acti: str = "none", last_norm: bool = False,
-                 bn_momentum: float = 0.9):
+                 bn_momentum: float = 0.9, dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         if norm not in ("bn", "gn", "none"):
             raise ValueError(f"unknown norm {norm!r} (bn|gn|none)")
         if final_acti not in _ACTIVATIONS:
@@ -100,8 +115,13 @@ class PointMLP(nn.Module):
         self.out_dim = last_dim
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        if dt is not None:
+            x = x.to(dt)
         for i in range(self.num_layers):
-            x = getattr(self, f"dense_{i}")(x)
+            dense = getattr(self, f"dense_{i}")
+            x = (dense(x) if dt is None else
+                 F.linear(x, dense.weight.to(dt), dense.bias.to(dt)))
             norm = getattr(self, f"norm_{i}", None)
             if norm is not None:
                 x = norm(x)
@@ -125,12 +145,18 @@ def init_xavier_(module: nn.Module,
     return module
 
 
-def check_network_supported(cfg) -> None:
-    """Raise for network options this slice of the port does not carry."""
-    net = cfg.network
-    if net.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"network/compute_dtype={net.compute_dtype!r} is not ported "
-            "(float32 only)")
-    if net.basin_head:
-        raise NotImplementedError("network/basin_head is not ported")
+# `network/compute_dtype` -> the torch compute dtype (None: float32, the
+# modules' own); the JAX package takes any name `jnp.dtype` reads and uses
+# it where it is not "float32"
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
+                  "float16": torch.float16}
+
+
+def compute_dtype(cfg) -> torch.dtype | None:
+    """The compute dtype `cfg.network.compute_dtype` names: None for
+    float32, else bfloat16 or float16.  Any other name raises."""
+    name = cfg.network.compute_dtype
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"network/compute_dtype={name!r} is not one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]

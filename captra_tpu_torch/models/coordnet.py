@@ -9,7 +9,7 @@ from captra_tpu_torch.config.schema import Config
 from captra_tpu_torch.device import resolve_device
 from captra_tpu_torch.models.backbone import PointNet2Msg
 from captra_tpu_torch.models.blocks import (
-    PointMLP, check_network_supported, init_xavier_,
+    PointMLP, compute_dtype, init_xavier_,
 )
 from captra_tpu_torch.pose import procrustes
 from captra_tpu_torch.pose.part_dof import Pose, canonicalize_columns
@@ -23,8 +23,10 @@ _XZ = slice(0, 3, 2)
 
 class CoordNet(nn.Module):
     """Backbone(use_xyz_feat) -> softmax seg [B, N, P+extra] and sigmoid-0.5
-    NPCS [B, N, 3P].
+    NPCS [B, N, 3P], and with `network/basin_head` a basin logit [B].
 
+    The backbone and heads compute in `network/compute_dtype`; softmax and
+    sigmoid run in float32, so seg and NPCS leave the net in float32.
     Built on `device` (CUDA unless given; raises without a card), in eval
     mode, with flax's xavier initialisation drawn from `generator` (a CPU
     generator; None uses torch's global one)."""
@@ -33,27 +35,44 @@ class CoordNet(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         device = resolve_device(device)
-        check_network_supported(cfg)
+        dtype = compute_dtype(cfg)
         net = cfg.network
         self.backbone = PointNet2Msg(cfg.pointnet, net.backbone_out_dim,
                                      use_xyz_feat=True, norm=net.norm,
                                      bn_momentum=bn_momentum,
-                                     fps_mode=net.fps_mode)
+                                     fps_mode=net.fps_mode, dtype=dtype)
         self.seg_head = PointMLP(net.backbone_out_dim, (cfg.obj.num_seg,),
-                                 norm="none", final_acti="none")
+                                 norm="none", final_acti="none", dtype=dtype)
         self.nocs_head = PointMLP(
             net.backbone_out_dim,
             tuple(net.nocs_head_dims) + (3 * cfg.obj.num_parts,),
-            norm=net.norm, final_acti="none", bn_momentum=bn_momentum)
+            norm=net.norm, final_acti="none", bn_momentum=bn_momentum,
+            dtype=dtype)
+        self.basin_head = net.basin_head
+        if self.basin_head:
+            # pooled max and mean of the features -> 128 -> one logit, in
+            # float32 (flax's Dense with no dtype); drawn xavier-uniform
+            # here, where flax draws lecun-normal: only trained weights
+            # score anything
+            self.basin_fc1 = nn.Linear(2 * net.backbone_out_dim, 128)
+            self.basin_fc2 = nn.Linear(128, 1)
         init_xavier_(self, generator)
         self.to(device).eval()
 
     def forward(self, canon_points: torch.Tensor) -> dict:
         """canon_points: [B, N, 3] already canonicalized camera points."""
         feat = self.backbone(canon_points)
-        seg = torch.softmax(self.seg_head(feat), dim=-1)
-        nocs = torch.sigmoid(self.nocs_head(feat)) - 0.5
-        return {"seg": seg, "nocs": nocs}
+        seg = torch.softmax(self.seg_head(feat).float(), dim=-1)
+        nocs = torch.sigmoid(self.nocs_head(feat).float()) - 0.5
+        out = {"seg": seg, "nocs": nocs}
+        if self.basin_head:
+            # read-only on the features: seg and NPCS do not depend on it
+            pooled = feat.detach().float()
+            g = torch.cat([torch.amax(pooled, dim=1),
+                           torch.mean(pooled, dim=1)], dim=-1)
+            h = torch.relu(self.basin_fc1(g))
+            out["basin"] = self.basin_fc2(h)[..., 0]
+        return out
 
 
 def canonicalize(points: torch.Tensor, points_mean: torch.Tensor,

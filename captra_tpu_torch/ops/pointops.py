@@ -140,7 +140,9 @@ def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
 def three_interp_rows(feats: torch.Tensor, idx: torch.Tensor,
                       weight: torch.Tensor) -> torch.Tensor:
     """Row-layout 3-NN interpolation ("gather" formulation): feats
-    [B, M, C], idx/weight [B, N, 3] -> [B, N, C]."""
+    [B, M, C], idx/weight [B, N, 3] -> [B, N, C].  Features of a lower
+    dtype times the float32 weights give float32, as in the JAX op
+    (pointops.py:246-248)."""
     B, _, C = feats.shape
     N = idx.shape[1]
     flat = idx.long().reshape(B, N * 3, 1).expand(B, N * 3, C)
@@ -153,17 +155,26 @@ def ball_group(radius: float, nsample: int, xyz: torch.Tensor,
                ) -> torch.Tensor:
     """Ball query + neighborhood grouping -> [B, S, nsample, D+3] of
     (features..., xyz - query_center): features FIRST, then the relative
-    xyz (the JAX op's exact route, pointops.py:290-301)."""
+    xyz (the JAX op's exact route, pointops.py:290-301).
+
+    Features keep their dtype and xyz stays float32: the relative xyz is
+    taken in float32 and cast to the features' dtype, the values the JAX
+    op's float32 block takes once the next layer casts it (its bucket
+    route, pointops.py:317-330, casts the same way)."""
     B, _, _ = xyz.shape
     S = new_xyz.shape[1]
-    src = xyz if feats is None else torch.cat([feats, xyz], dim=-1)
-    C = src.shape[-1] - 3  # feature channels before the xyz block
     idx = ball_query(radius, nsample, xyz, new_xyz)
-    flat = idx.reshape(B, S * nsample, 1).expand(B, S * nsample,
-                                                 src.shape[-1])
-    g = torch.gather(src, 1, flat).reshape(B, S, nsample, src.shape[-1])
-    rel = g[..., C:] - new_xyz[:, :, None]
-    return torch.cat([g[..., :C], rel], dim=-1) if C else rel
+    flat = idx.reshape(B, S * nsample, 1)
+
+    def group(values):
+        C = values.shape[-1]
+        return torch.gather(values, 1, flat.expand(B, S * nsample, C)
+                            ).reshape(B, S, nsample, C)
+
+    rel = group(xyz) - new_xyz[:, :, None]
+    if feats is None:
+        return rel
+    return torch.cat([group(feats), rel.to(feats.dtype)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,8 @@ from typing import Sequence
 
 import torch
 
+from captra_tpu_torch.pose import metrics
+from captra_tpu_torch.pose import rotations as rot
 from captra_tpu_torch.utils.precision import f32_precision
 
 
@@ -115,3 +117,77 @@ def merge_delta_pose(base: Pose, delta_rotation: torch.Tensor | None = None,
             base.rotation @ delta_trans)
     return Pose(rotation=rotation, translation=translation, scale=scale)
 
+
+
+# ---------------------------------------------------------------------------
+# evaluation & perturbation
+# ---------------------------------------------------------------------------
+
+def eval_part_full(gt: Pose, pred: Pose, yaxis_only: bool = False) -> dict:
+    """Per-part pose errors and 5deg5cm / 10deg10cm indicators, each shaped
+    like `gt.scale` ([..., P])."""
+    rdiff = metrics.rot_diff_degree(gt.rotation, pred.rotation,
+                                    yaxis_only=yaxis_only)
+    tdiff = metrics.trans_diff(gt.translation, pred.translation)
+    sdiff = metrics.scale_diff(gt.scale, pred.scale)
+    return {
+        "rdiff": rdiff,
+        "tdiff": tdiff,
+        "sdiff": sdiff,
+        "5deg5cm": ((rdiff <= 5.0) & (tdiff <= 0.05)).float(),
+        "10deg10cm": ((rdiff <= 10.0) & (tdiff <= 0.10)).float(),
+    }
+
+
+# the raw draws of `add_noise_to_pose` for poses of leading shape S: name ->
+# trailing shape; "rot_quat" is standard normal, the others follow `kind`
+# (standard normal, or uniform in [0, 1))
+NOISE_DRAWS = {"rot_angle": (), "rot_quat": (4,), "scale": (),
+               "trans_norm": (), "trans_dir": (3,)}
+
+
+def draw_pose_noise(shape, kind: str, generator: torch.Generator) -> dict:
+    """`add_noise_to_pose`'s draws for poses of leading shape `shape`, from
+    `generator` (on its device)."""
+    out = {}
+    for name, tail in NOISE_DRAWS.items():
+        size = tuple(shape) + tail
+        if kind == "uniform" and name != "rot_quat":
+            out[name] = torch.rand(size, generator=generator,
+                                   device=generator.device)
+        else:
+            out[name] = torch.randn(size, generator=generator,
+                                    device=generator.device)
+    return out
+
+
+def add_noise_to_pose(pose: Pose, rot_rad: float, trans_sigma: float,
+                      scale_sigma: float, kind: str = "normal",
+                      noise: dict | None = None,
+                      generator: torch.Generator | None = None) -> Pose:
+    """Perturb a pose for init-frame simulation: rotation jittered by
+    |N| * rot_rad (U * rot_rad for "uniform") about a random axis, scale by
+    N * scale_sigma, translation along a random direction by
+    N * trans_sigma (N: standard normal, or 2U - 1 for "uniform").
+
+    The draws are explicit: `noise` (the `NOISE_DRAWS` tensors), else drawn
+    from `generator`, else this raises."""
+    if noise is None:
+        if generator is None:
+            raise ValueError("add_noise_to_pose needs its draws (noise=) or "
+                             "a torch.Generator")
+        noise = draw_pose_noise(pose.scale.shape, kind, generator)
+
+    def rand(x):
+        return x * 2.0 - 1.0 if kind == "uniform" else x
+
+    rotation = rot.noisy_rot_matrix(pose.rotation, rot_rad,
+                                    noise["rot_angle"], noise["rot_quat"],
+                                    kind=kind)
+    scale = pose.scale + rand(noise["scale"]) * scale_sigma
+    norm = rand(noise["trans_norm"]) * trans_sigma          # [..., P]
+    direction = rand(noise["trans_dir"])
+    direction = direction / torch.clamp(
+        torch.linalg.norm(direction, dim=-1, keepdim=True), min=1e-9)
+    translation = pose.translation + (direction * norm[..., None])[..., None]
+    return Pose(rotation=rotation, translation=translation, scale=scale)

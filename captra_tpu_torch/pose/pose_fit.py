@@ -1,15 +1,18 @@
 """Per-part scale/translation fit from predicted NPCS + labels (counterpart
-of `captra_tpu/pose/pose_fit.py`, without the opt-in RANSAC path).
+of `captra_tpu/pose/pose_fit.py`).
 
 The rotation is given, so no 3D SVD runs here: only the closed-form 2D
-y-axis refinement for symmetric categories.
+y-axis refinement for symmetric categories (and, with the opt-in RANSAC,
+the 3-point hypotheses' closed-form fits).
 """
 from __future__ import annotations
 
 import torch
 
 from captra_tpu_torch.pose.part_dof import Pose
-from captra_tpu_torch.pose.procrustes import similarity_fit
+from captra_tpu_torch.pose.procrustes import (
+    similarity_fit, similarity_fit_ransac,
+)
 from captra_tpu_torch.utils.precision import f32_precision
 
 
@@ -44,18 +47,29 @@ def part_fit_st(labels: torch.Tensor, source: torch.Tensor,
                 target: torch.Tensor, rotation: torch.Tensor,
                 num_parts: int, sym: bool,
                 given_scale: torch.Tensor | None = None,
-                min_scale: float | None = None):
+                min_scale: float | None = None,
+                ransac_hyps: int = 0, ransac_th: float = 0.01,
+                gumbel: torch.Tensor | None = None):
     """Fit per-part scale + translation given rotation.
 
     labels [B, N]; source (pred NPCS per part) [B, P, N, 3]; target (camera
     points) [B, P, N, 3]; rotation [B, P, 3, 3].  Returns (Pose [B, P],
     valid [B, P] bool): valid needs > 3 in-part points and a finite fit.
     The sym-refined rotation only serves the s/t fit; the returned pose
-    keeps the given rotation."""
+    keeps the given rotation.
+
+    ransac_hyps > 0 (the tracking opt-in `fit_ransac`; not with
+    given_scale) fits with `similarity_fit_ransac` on the draws `gumbel`
+    [B, P, ransac_hyps, N]."""
     mask = labels_to_part_mask(labels, num_parts)  # [B, P, N]
     valid = torch.sum(mask, dim=-1) > 3
-    _, scale, translation = similarity_fit(
-        source, target, mask, given_scale=given_scale, rotation=rotation,
-        sym=sym)
+    if ransac_hyps > 0 and given_scale is None:
+        _, scale, translation, _ = similarity_fit_ransac(
+            source, target, mask, num_hyps=ransac_hyps, inlier_th=ransac_th,
+            rotation=rotation, sym=sym, gumbel=gumbel)
+    else:
+        _, scale, translation = similarity_fit(
+            source, target, mask, given_scale=given_scale,
+            rotation=rotation, sym=sym)
     pose = Pose(rotation=rotation, translation=translation, scale=scale)
     return pose, filter_valid(pose, valid, min_scale=min_scale)

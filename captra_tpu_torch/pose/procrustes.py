@@ -11,8 +11,11 @@
 
 Layout: points are rows, `[..., N, 3]`; masks/weights are `[..., N]`.
 Rotations act on columns (`y = R x`), so row layout poses as `pts @ R.T`.
-`similarity_fit_ransac` belongs to the opt-in RANSAC path and is not ported
-yet.
+
+`similarity_fit_ransac`'s one random input, the Gumbel scores that pick
+each hypothesis's three points, is explicit: a given tensor first, else a
+draw from a `torch.Generator`, else it raises (the JAX function draws them
+from `jax.random`, which torch cannot reproduce).
 """
 from __future__ import annotations
 
@@ -176,3 +179,102 @@ def similarity_fit(source: torch.Tensor, target: torch.Tensor,
     posed_src = scale[..., None, None] * (source @ rotation.transpose(-1, -2))
     translation = translation_fit(posed_src, target, mask)
     return rotation, scale, translation
+
+
+def draw_gumbel(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel draws [shape] on the generator's device, made as
+    `jax.random.gumbel` makes them: -log(-log(u)), u uniform in
+    [float32 tiny, 1)."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_or_draw(gumbel: torch.Tensor | None, shape,
+                   generator: torch.Generator | None,
+                   what: str) -> torch.Tensor:
+    """`gumbel` when given (its shape must be `shape`), else a draw from
+    `generator`; with neither this raises, naming `what` needs them."""
+    if gumbel is not None:
+        if tuple(gumbel.shape) != tuple(shape):
+            raise ValueError(f"{what}: Gumbel draws of shape "
+                             f"{tuple(gumbel.shape)}, expected {tuple(shape)}")
+        return gumbel
+    if generator is None:
+        raise ValueError(f"{what} needs its Gumbel draws [..., hyps, N] or "
+                         "a torch.Generator to draw them")
+    return draw_gumbel(tuple(shape), generator)
+
+
+@f32_precision
+def similarity_fit_ransac(source: torch.Tensor, target: torch.Tensor,
+                          mask: torch.Tensor, num_hyps: int = 32,
+                          inlier_th: float = 0.01, min_inliers: int = 4,
+                          rotation: torch.Tensor | None = None,
+                          sym: bool = False,
+                          gumbel: torch.Tensor | None = None,
+                          generator: torch.Generator | None = None):
+    """RANSAC-robust masked similarity fit with fixed shapes.
+
+    `similarity_fit`'s contract plus outlier rejection: `num_hyps` 3-point
+    hypotheses drawn from the masked points (the three highest Gumbel
+    scores of each hypothesis, ties to the lower index as `lax.top_k`
+    breaks them), each fit in closed form and scored by its inliers
+    (camera-space residual < `inlier_th`); the best one (the first of equal
+    counts) gives the final least-squares refit on its inliers, or on the
+    full mask when it has fewer than `min_inliers`.  With a given rotation
+    and `sym`, the rotation is azimuth-refined on the full mask first.
+
+    gumbel [..., num_hyps, N] are the draws (else drawn from `generator`).
+    Returns (rotation [..., 3, 3], scale [...], translation [..., 3, 1],
+    refit mask [..., N])."""
+    lead = tuple(mask.shape[:-1])   # e.g. (B, P)
+    N = mask.shape[-1]
+    H = num_hyps
+    src = source.expand(lead + (N, 3))
+    tgt = target.expand(lead + (N, 3))
+
+    if rotation is not None and sym:
+        # the carried spin is free up to azimuth: refine it before scoring,
+        # or every point would miss whenever the spin is off
+        rotation, _, _ = similarity_fit(source, target, mask,
+                                        rotation=rotation, sym=True)
+
+    g = gumbel_or_draw(gumbel, lead + (H, N), generator,
+                       "similarity_fit_ransac")
+    scores = torch.where(mask[..., None, :] > 0, g, -torch.inf)
+    idx3 = torch.sort(scores, dim=-1, descending=True,
+                      stable=True)[1][..., :3]              # [..., H, 3]
+
+    def take(pts):                                          # [..., H, 3, 3]
+        return torch.gather(pts[..., None, :, :].expand(lead + (H, N, 3)),
+                            -2, idx3[..., None].expand(lead + (H, 3, 3)))
+
+    s3, t3 = take(src), take(tgt)
+    s3_c = s3 - torch.mean(s3, dim=-2, keepdim=True)
+    t3_c = t3 - torch.mean(t3, dim=-2, keepdim=True)
+    if rotation is None:
+        R_h = kabsch_rotation(s3_c, t3_c)                   # [..., H, 3, 3]
+    else:
+        R_h = rotation[..., None, :, :].expand(lead + (H, 3, 3))
+    R_hT = R_h.transpose(-1, -2)
+    scale_h = (torch.sum((s3_c @ R_hT) * t3_c, dim=(-1, -2)) /
+               torch.clamp(torch.sum(s3_c * s3_c, dim=(-1, -2)), min=EPS))
+    trans_h = torch.mean(t3 - scale_h[..., None, None] * (s3 @ R_hT),
+                         dim=-2)                            # [..., H, 3]
+
+    posed = (scale_h[..., None, None] * (src[..., None, :, :] @ R_hT)
+             + trans_h[..., None, :])                       # [..., H, N, 3]
+    err = torch.linalg.norm(tgt[..., None, :, :] - posed, dim=-1)
+    inl = (err < inlier_th) & (mask[..., None, :] > 0)      # [..., H, N]
+    counts = torch.sum(inl, dim=-1)                         # [..., H]
+    best = torch.argmax(counts, dim=-1)                     # [...]
+    best_inl = torch.gather(inl, -2, best[..., None, None].expand(
+        lead + (1, N)))[..., 0, :]
+    best_count = torch.gather(counts, -1, best[..., None])[..., 0]
+
+    ok = best_count >= min_inliers
+    refit_mask = torch.where(ok[..., None], best_inl.to(mask.dtype), mask)
+    R, s, t = similarity_fit(source, target, refit_mask, rotation=rotation,
+                             sym=sym)
+    return R, s, t, refit_mask

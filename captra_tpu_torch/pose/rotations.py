@@ -4,7 +4,8 @@
 All functions are shape-polymorphic over leading batch dims; zero-norm inputs
 fall back instead of producing NaNs.  The JAX module's samplers
 (`random_quat`, `jitter_quat`, `noisy_rot_matrix`) draw from `jax.random`
-keys and belong to the init-noise path, which this port does not carry yet.
+keys; here they take their standard-normal (or uniform) draws as tensors,
+so a caller can feed the JAX draws or its own.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from captra_tpu_torch.device import constant
 EPS = 1e-8
 
 
-def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cross product over the last axis, broadcasting as `jnp.cross`."""
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
 
@@ -50,7 +52,7 @@ def quat_multiply(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     real1, im1 = q[..., :1], q[..., 1:]
     real2, im2 = r[..., :1], r[..., 1:]
     real = real1 * real2 - torch.sum(im1 * im2, dim=-1, keepdim=True)
-    im = real1 * im2 + real2 * im1 + _cross(im1, im2)
+    im = real1 * im2 + real2 * im1 + cross(im1, im2)
     return torch.cat([real, im], dim=-1)
 
 
@@ -145,8 +147,8 @@ def ortho6d_to_matrix(poses: torch.Tensor) -> torch.Tensor:
     """Ortho-6D [..., 6] -> R [..., 3, 3] with columns (x, y, z)."""
     x_raw, y_raw = poses[..., 0:3], poses[..., 3:6]
     x = normalize_vector(x_raw)
-    z = normalize_vector(_cross(x, y_raw))
-    y = _cross(z, x)
+    z = normalize_vector(cross(x, y_raw))
+    y = cross(z, x)
     return torch.stack([x, y, z], dim=-1)  # columns
 
 
@@ -172,6 +174,43 @@ def yvec_to_matrix(vec: torch.Tensor) -> torch.Tensor:
     the x/z completion is arbitrary, as only y is supervised."""
     y = normalize_vector(vec)
     x_raw = constant((1.0, 0.0, 0.0), y.dtype, y.device).expand(y.shape)
-    z = normalize_vector(_cross(x_raw, y))
-    x = _cross(y, z)
+    z = normalize_vector(cross(x_raw, y))
+    x = cross(y, z)
     return torch.stack([x, y, z], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# perturbation (explicit draws)
+# ---------------------------------------------------------------------------
+
+def random_quat(draw: torch.Tensor) -> torch.Tensor:
+    """A random unit quaternion from standard-normal draws [..., 4]."""
+    return normalize_quat(draw)
+
+
+def jitter_quat(q: torch.Tensor, theta: torch.Tensor,
+                draw: torch.Tensor) -> torch.Tensor:
+    """Rotate q [..., 4] by angle theta [..., 1] in the great-circle
+    direction of the random quaternion of `draw` [..., 4] (standard
+    normal)."""
+    new_q = random_quat(draw)
+    dot = torch.sum(q * new_q, dim=-1, keepdim=True)
+    q_orth = normalize_quat(new_q - q * dot)
+    return q * torch.cos(theta / 2.0) + q_orth * torch.sin(theta / 2.0)
+
+
+def noisy_rot_matrix(matrix: torch.Tensor, rad: float,
+                     angle_draw: torch.Tensor, quat_draw: torch.Tensor,
+                     kind: str = "normal") -> torch.Tensor:
+    """Perturb rotation matrices [..., 3, 3] by a geodesic angle of
+    |angle_draw| * rad ("normal": standard-normal draws) or angle_draw * rad
+    ("uniform": draws in [0, 1)), angle_draw [...], in the direction of
+    quat_draw [..., 4] (standard normal)."""
+    if kind == "normal":
+        theta = torch.abs(angle_draw) * rad
+    elif kind == "uniform":
+        theta = angle_draw * rad
+    else:
+        raise ValueError(f"unknown perturbation type {kind}")
+    q = matrix_to_quat(matrix)
+    return quat_to_matrix(jitter_quat(q, theta[..., None], quat_draw))

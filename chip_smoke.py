@@ -16,39 +16,51 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 replay on the card).
   3. slice   -- the main path: NOCS bottle tracking at full width (4096
                 points, the `pointnet2_camera` backbone), random weights
-                from a seed, synthetic trajectories of T frames, at B = 1
-                (sa1 -> fps_cuda_wide, sa2 -> fps_cuda_batched) and B = 16
-                (both -> fps_cuda_batched).  The launch counters are zeroed
-                just before and read just after; every kernel must have
-                launched, the poses must be finite and equal (1e-4) to the
-                same run with the plain FPS on the card.  ms per tracked
-                frame, frames/s and the error to the synthetic ground truth
-                are printed; so is, for information only, the distance of
-                the first tracked frame to the port's CPU run.
+                from a seed, synthetic trajectories of T frames, in the runs
+                of SLICE_RUNS: B = 1 (sa1 -> fps_cuda_wide, sa2 ->
+                fps_cuda_batched) and B = 16 (both -> fps_cuda_batched) in
+                float32 and in bfloat16, `quality_profile=best` at B = 1
+                and B = 16 (3 passes of the nets a frame: three times the
+                default step's FPS launches) and the other opt-ins stacked
+                at B = 16 (const_vel, conf_weighted_delta, delta_gain,
+                scale_clamp, rot_fit=fused, fit_ransac; draws from a
+                seeded generator on the card).  Each run (`timed_run`):
+                counters zeroed just before and read just after, launches
+                per tracked frame as predicted, poses finite and within 1e-4
+                of the same run with the plain FPS on the card, ms a step
+                (median of 5 runs of T - 1 steps), frames/s and the error to
+                the synthetic ground truth; each bfloat16 run against its
+                float32 twin (ms a step, the largest pose difference); for
+                information only, the first tracked frame against the port's
+                CPU run.
   4. otf     -- the OTF tracking path (`nocs_otf`: raw 480x640 depth ->
                 backprojection and ball crop on the card -> FPS of the
-                20480-point working set to 4096 -> the nets), same nets,
+                20480-point working set to 4096 -> the nets), same weights,
                 depth video from `data/depth_frames.py` (T frames), crop
-                shifts from the seed, in four runs: B=1 (crop ->
+                shifts from the seed, in the runs of OTF_RUNS: B=1 (crop ->
                 fps_cuda_wide's cluster), B=1 with CAPTRA_FPS_BLOCKED=1
                 (crop -> fps_cuda_blocked; poses must equal the B=1 run's),
-                B=8 (crop -> fps_cuda_batched's cluster) and B=1 with
-                otf_fps_mode / network fps_mode "grouped".  Each run: counters
-                zeroed just before and read just after, launches per tracked
-                frame as the dispatch predicts, poses finite and within 1e-4
-                of the same run with the plain FPS on the card; ms per
-                tracked step (median of 5 runs of T - 1 steps).  Then, for
-                B=1 and B=8, the crop's working sets of every tracked frame
-                of the video are recorded, and so are the inputs of sa1
-                (4096 points) and sa2 (512), the picks each crop needs
-                before its first forced 0 printed, and each kernel held
-                against the plain FPS on them and timed over the whole
-                video (ms a frame: the kernel's time on the main path).
-  5. summary -- JSON lines of the two paths and of the kernels, then, as the
+                B=8 (crop -> fps_cuda_batched's cluster) in float32 and in
+                bfloat16, and B=1 with otf_fps_mode / network fps_mode
+                "grouped".  Each run as in the slice.  Then, for B=1 and
+                B=8, the crop's working sets of every tracked frame of the
+                video are recorded, and so are the inputs of sa1 (4096
+                points) and sa2 (512), the picks each crop needs before its
+                first forced 0 printed, and each kernel held against the
+                plain FPS on them and timed over the whole video (ms a
+                frame: the kernel's time on the main path).
+  5. init_search -- the GT-less init on the slice's B=1 trajectory:
+                init_pose_from_cloud, search_init_orientation over K=64
+                candidates on frame 0 (median of 5 searches, counters zeroed
+                around them, the pose against the plain FPS's), then
+                tracking from the found pose as a slice run; the search's
+                FPS inputs are recorded and the kernel held against the
+                plain FPS on them.
+  6. summary -- JSON lines of the paths and of the kernels, then, as the
                 last line, {"ok": true, "device": {...}}.
 
---profile DIR adds a torch.profiler window over a few tracked frames at each
-B and OTF run (kernel time by name and family, the device's busy share, FPS's
+--profile DIR adds a torch.profiler window over a few tracked frames to each
+run (kernel time by name and family, the device's busy share, FPS's
 share of the step, host syncs) and writes the full tables into DIR.
 
 Without a CUDA device the script exits with code 2 and prints no result.
@@ -58,6 +70,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -70,7 +83,6 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 T = 20                      # frames per trajectory (T - 1 tracked)
-BATCHES = (1, 16)
 REPEATS = 5                 # timed trajectories per B
 POSE_TOL = 1e-4
 # H100 SXM data-sheet peaks (dense, no sparsity) for the kernels' bounds
@@ -129,16 +141,42 @@ HEADLINE = {"fps_cuda_batched": (8, 4096, 512, SA_VIDEO),
             "fps_cuda_blocked": (1, 20480, 4096, CROP_VIDEO)}
 # the kernels each path must launch
 SLICE_KERNELS = ("fps_cuda_batched", "fps_cuda_wide")
-# OTF runs: (name, B, fps_mode, CAPTRA_FPS_BLOCKED) and the launches each
-# tracked frame must make (crop + sa1 and sa2 of both nets)
-OTF_RUNS = (("b1", 1, "exact", False), ("b1_blocked", 1, "exact", True),
-            ("b8", 8, "exact", False), ("b1_grouped", 1, "grouped", False))
+# runs whose name starts so compute in bfloat16 and are compared with the
+# float32 run of the name without it
+BF16_PREFIX = "bf16_"
+BF16 = {"compute_dtype": "bfloat16"}
+# the opt-ins stacked in one run: RANSAC draws from the step's generator on
+# the card, re-seeded each trajectory so the plain-FPS run sees the same
+STACKED = dict(motion_model="const_vel", conf_weighted_delta=True,
+               delta_gain=1.5, scale_clamp=0.05, rot_fit="fused",
+               fit_ransac=32)
+# the points path's runs: (name, B, nocs_bottle's arguments, TrackCfg fields
+# set on top, the nets' passes a tracked frame: 4 FPS sweeps a pass)
+SLICE_RUNS = (
+    ("b1", 1, {}, {}, 1),
+    ("b16", 16, {}, {}, 1),
+    (BF16_PREFIX + "b1", 1, BF16, {}, 1),
+    (BF16_PREFIX + "b16", 16, BF16, {}, 1),
+    ("best_b1", 1, {"quality_profile": "best"}, {}, 3),
+    ("best_b16", 16, {"quality_profile": "best"}, {}, 3),
+    ("stacked_b16", 16, {}, STACKED, 1),
+)
+# OTF runs: (name, B, fps_mode, CAPTRA_FPS_BLOCKED, nocs_bottle_otf's other
+# arguments) and the launches each tracked frame must make (crop + sa1 and
+# sa2 of both nets)
+OTF_RUNS = (("b1", 1, "exact", False, {}),
+            ("b1_blocked", 1, "exact", True, {}),
+            ("b8", 8, "exact", False, {}),
+            (BF16_PREFIX + "b8", 8, "exact", False, BF16),
+            ("b1_grouped", 1, "grouped", False, {}))
 OTF_LAUNCHES = {
     "b1": {"fps_cuda_wide_cluster": 1, "fps_cuda_wide": 2,
            "fps_cuda_batched": 2},
     "b1_blocked": {"fps_cuda_blocked": 1, "fps_cuda_wide": 2,
                    "fps_cuda_batched": 2},
     "b8": {"fps_cuda_batched_cluster": 1, "fps_cuda_batched": 4},
+    BF16_PREFIX + "b8": {"fps_cuda_batched_cluster": 1,
+                         "fps_cuda_batched": 4},
     "b1_grouped": {"fps_cuda_batched": 5},
 }
 # OTF runs whose FPS inputs are recorded on every tracked frame, and for
@@ -392,7 +430,7 @@ def _check_case(fps, results, fn, xyz, npoint, where):
 
 
 def check_video(fps, results, wrappers, clouds, npoint, run, frames,
-                where) -> None:
+                where, path: str = "otf") -> None:
     """Hold each wrapper against the plain FPS on every input `clouds` that
     one FPS call of a tracked video of `frames` frames was given, and time
     it over the whole video; the case's ms, plain ms, bound and sweeps are
@@ -410,7 +448,7 @@ def check_video(fps, results, wrappers, clouds, npoint, run, frames,
     picks = [picks_before_zero(w) for w in wants]
     sweeps = sum(map(sum, picks))
     flat = sorted(p for call in picks for p in call)
-    log(f"otf {run} [{B},{N}]->{npoint}, {calls} calls in {F} tracked "
+    log(f"{path} {run} [{B},{N}]->{npoint}, {calls} calls in {F} tracked "
         f"frames: picks before the first forced 0, per call summed over the "
         f"clouds {[sum(p) for p in picks]}; per cloud min {flat[0]}, median "
         f"{flat[len(flat) // 2]}, max {flat[-1]}")
@@ -422,7 +460,7 @@ def check_video(fps, results, wrappers, clouds, npoint, run, frames,
             got, kernel = _launched(fps, lambda: fn(xyz, npoint))
             err = max(err, int((got.long() - want.long()).abs().max()))
         if err:
-            raise AssertionError(f"{kernel} on the {run} video's [{B},{N}] "
+            raise AssertionError(f"{kernel} on the {path} {run} [{B},{N}] "
                                  f"inputs: indices differ from the plain FPS "
                                  f"(max |diff| {err})")
         ms = time_ms(lambda: [fn(xyz, npoint) for xyz in clouds], reps=5,
@@ -434,9 +472,9 @@ def check_video(fps, results, wrappers, clouds, npoint, run, frames,
             us_per_pick=ms * 1e3 * F / calls / (npoint - 1)))
         if kernel == "fps_cuda_blocked" and B == 1:
             results[kernel][-1]["rows_updated"] = log_rows_updated(
-                fps, clouds, wants, f"[{B},{N}]->{npoint} (otf {run}, "
+                fps, clouds, wants, f"[{B},{N}]->{npoint} ({path} {run}, "
                 f"{calls} tracked frames)")
-        log(f"kernel {kernel} [{B},{N}]->{npoint} ({where}, otf {run}): "
+        log(f"kernel {kernel} [{B},{N}]->{npoint} ({where}, {path} {run}): "
             f"equal on all {calls} calls; {ms:.4f} ms a frame "
             f"({ms * 1e3 * F / calls / (npoint - 1):.3f} us a pick), plain "
             f"{plain_ms:.3f} ms, bound {bound_ms / F:.5f} ms ({bound_by}, "
@@ -562,16 +600,109 @@ def time_track(track, steps: int, device: torch.device):
     return steps_ms, aux
 
 
-def phase_slice(cfg, device: str = "cuda", profile: str | None = None
-                ) -> dict:
-    """Track at each B in BATCHES; returns the FPS launches of the main
-    path, per B and in all.  `device` and a small `cfg` let the phase be
-    rehearsed on the CPU with the plain FPS."""
+def seeded_nets(config, dev: torch.device):
+    """`nets(cfg)` -> (CoordNet, RotNet) for cfg's network, every pair with
+    the random weights drawn from SEED for `config()`'s nets."""
+    from captra_tpu_torch.models.coordnet import CoordNet
+    from captra_tpu_torch.models.rotnet import RotNet
+    base = config()
+    gen = torch.Generator().manual_seed(SEED)
+    first = (CoordNet(base, device=dev, generator=gen),
+             RotNet(base, device=dev, generator=gen))
+
+    def key(cfg):
+        return cfg.network, cfg.pointnet, cfg.obj
+
+    made = {key(base): first}
+
+    def nets(cfg):
+        if key(cfg) not in made:
+            made[key(cfg)] = (CoordNet(cfg, device=dev),
+                              RotNet(cfg, device=dev))
+            for src, dst in zip(first, made[key(cfg)]):
+                dst.load_state_dict(src.state_dict())
+        return made[key(cfg)]
+
+    return nets
+
+
+def timed_run(name: str, track, B: int, frames: int, dev: torch.device,
+              profile: str | None = None):
+    """One tracked path, `track(upto)` a trajectory of its first `upto`
+    frames: a warm-up, the launch counters zeroed just before its REPEATS
+    timed trajectories and read just after, poses finite and within
+    POSE_TOL (labels equal) of the same trajectory with the plain FPS on
+    the card, and with `profile` a profiler window of 3 steps.  Returns the
+    run's record and the last timed trajectory's aux."""
+    from captra_tpu_torch.ops import fps
+    track(3)                                          # warm-up
+    sync(dev)
+    fps.reset_launch_counts()
+    steps_ms, aux = time_track(lambda: track(frames), frames - 1, dev)
+    launches = dict(fps.launch_counts)
+    for f in ("rotation", "translation", "scale"):
+        if not bool(torch.isfinite(getattr(aux.pose, f)).all()):
+            raise AssertionError(f"{name}: non-finite {f}")
+    with plain_fps_on_card():
+        _, plain = track(frames)
+    diff = _max_pose_diff(aux.pose, plain.pose)
+    log(f"{name}: kernels vs plain FPS on {dev}, max |diff| {diff}")
+    if max(diff.values()) > POSE_TOL or not torch.equal(aux.pred_labels,
+                                                        plain.pred_labels):
+        raise AssertionError(f"{name}: poses with the kernels differ from "
+                             f"the plain FPS by {diff}")
+    prof = (profile_window(lambda: track(4), 3, B, profile,
+                           tag=name.replace(" ", "_")) if profile else None)
+    ms = float(np.median(steps_ms))
+    return dict(B=B, launches=launches, ms_per_step=ms,
+                ms_per_step_runs=steps_ms, frames_per_s=B * 1e3 / ms,
+                plain_fps_diff=diff, profile=prof), aux
+
+
+def run_msg(name: str, run: dict, frames: int) -> str:
+    ms, steps_ms, B = run["ms_per_step"], run["ms_per_step_runs"], run["B"]
+    msg = (f"{name}: {ms:.2f} ms per tracked step of {B} frame(s) (median "
+           f"of {REPEATS} runs of {frames - 1} steps; min {min(steps_ms):.2f}"
+           f", max {max(steps_ms):.2f}), {ms / B:.3f} ms per tracked frame, "
+           f"{B * 1e3 / ms:.1f} tracked frames/s")
+    if run["profile"]:
+        msg += "; card busy ms per step by family " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(
+                run["profile"]["families_ms"].items(), key=lambda kv: -kv[1]))
+    return msg
+
+
+def compare_dtypes(path: str, runs: dict, poses: dict) -> dict:
+    """Each bfloat16 run of `runs` against its float32 twin of the same call
+    (the name without the `bf16_` prefix): ms a step and the largest pose
+    difference (information: random nets amplify the rounding)."""
+    out = {}
+    for name in runs:
+        if not name.startswith(BF16_PREFIX):
+            continue
+        f32, bf16 = runs[name[len(BF16_PREFIX):]], runs[name]
+        diff = _max_pose_diff(poses[name], poses[name[len(BF16_PREFIX):]])
+        out[name] = dict(max_pose_diff=diff, speedup=(
+            f32["ms_per_step"] / bf16["ms_per_step"]))
+        log(f"{path} {name}: bfloat16 {bf16['ms_per_step']:.2f} against "
+            f"float32 {f32['ms_per_step']:.2f} ms per step "
+            f"({f32['ms_per_step'] / bf16['ms_per_step']:.2f}x); largest "
+            f"pose difference between the dtypes {diff}")
+    return out
+
+
+def phase_slice(config=None, device: str = "cuda",
+                profile: str | None = None, runs=SLICE_RUNS,
+                frames: int = T) -> dict:
+    """Track each run of `runs` on synthetic trajectories; returns per run
+    its launches, ms per step and profile, the FPS launches of the whole
+    phase, and each bfloat16 run against its float32 twin.  `device`, a
+    short `frames` and a small `config(compute_dtype=, quality_profile=)`
+    let the phase be rehearsed on the CPU with the plain FPS."""
+    from captra_tpu_torch.config.presets import nocs_bottle
     from captra_tpu_torch.data.synthetic import (
         batch_trajectories, make_trajectory,
     )
-    from captra_tpu_torch.models.coordnet import CoordNet
-    from captra_tpu_torch.models.rotnet import RotNet
     from captra_tpu_torch.ops import fps
     from captra_tpu_torch.pose import metrics
     from captra_tpu_torch.pose.part_dof import Pose
@@ -580,110 +711,82 @@ def phase_slice(cfg, device: str = "cuda", profile: str | None = None
     )
 
     dev = torch.device(device)
-    gen = torch.Generator().manual_seed(SEED)
-    coord = CoordNet(cfg, device=dev, generator=gen)
-    rotn = RotNet(cfg, device=dev, generator=gen)
-    n_params = sum(p.numel() for m in (coord, rotn) for p in m.parameters())
-    log(f"slice: {cfg.obj.name}, {cfg.num_points} points, {n_params} "
-        f"parameters (random, seed {SEED}), T={T}, on {dev}")
-    step = make_track_step(cfg, coord, rotn, device=dev)
+    config = config or nocs_bottle
+    base = config()
+    nets = seeded_nets(config, dev)
+    n_params = sum(p.numel() for m in nets(base) for p in m.parameters())
+    log(f"slice: {base.obj.name}, {base.num_points} points, {n_params} "
+        f"parameters (random, seed {SEED}), T={frames}, on {dev}")
 
-    data, init = {}, {}
-    for B in BATCHES:
+    data, init, points = {}, {}, {}
+    for B in sorted({r[1] for r in runs}):
         d = batch_trajectories([
-            make_trajectory(seed=100 * B + i, obj=cfg.obj, num_frames=T,
-                            num_points=cfg.num_points) for i in range(B)])
+            make_trajectory(seed=100 * B + i, obj=base.obj, num_frames=frames,
+                            num_points=base.num_points) for i in range(B)])
         data[B] = d
         init[B] = Pose(*(torch.from_numpy(d[k][0]).to(dev)
                          for k in ("rotation", "translation", "scale")))
+        points[B] = torch.from_numpy(d["points"]).to(dev)
 
-    points = {B: torch.from_numpy(data[B]["points"]).to(dev) for B in BATCHES}
+    out, poses, total = {}, {}, {k: 0 for k in fps.launch_counts}
+    for name, B, kwargs, fields, _ in runs:
+        cfg = config(**kwargs)
+        if fields:
+            cfg = cfg.replace(track=dataclasses.replace(cfg.track, **fields))
+        step_gen = torch.Generator(device=dev)
+        step = make_track_step(cfg, *nets(cfg), device=dev,
+                               generator=step_gen)
 
-    def track(B, upto=T):
-        return track_trajectory(step, init[B], {"points": points[B][:upto]},
-                                device=dev)
+        def track(upto, step=step, step_gen=step_gen, B=B):
+            step_gen.manual_seed(SEED)          # the same draws every run
+            return track_trajectory(step, init[B],
+                                    {"points": points[B][:upto]}, device=dev)
 
-    for B in BATCHES:                                 # warm-up
-        track(B, 3)
-    sync(dev)
-
-    # the main path: counters zeroed just before, read just after
-    fps.reset_launch_counts()
-    runs, per_b = {}, {}
-    for B in BATCHES:
-        before = dict(fps.launch_counts)
-        steps_ms, runs[B] = time_track(lambda: track(B), T - 1, dev)
-        per_b[B] = {k: fps.launch_counts[k] - before[k] for k in before}
-        ms = float(np.median(steps_ms))
-        per_b[B].update(ms_per_step=ms, ms_per_step_runs=steps_ms,
-                        frames_per_s=B * 1e3 / ms)
-    launches = dict(fps.launch_counts)
-
-    for B in BATCHES:
-        c = per_b[B]
-        log(f"slice B={B}: {c['ms_per_step']:.2f} ms per tracked step of {B} "
-            f"frames (median of {REPEATS} runs of {T - 1} steps; min "
-            f"{min(c['ms_per_step_runs']):.2f}, max "
-            f"{max(c['ms_per_step_runs']):.2f}), "
-            f"{c['ms_per_step'] / B:.3f} ms per tracked frame, "
-            f"{c['frames_per_s']:.1f} tracked frames/s; launches wide "
-            f"{c['fps_cuda_wide']} batched {c['fps_cuda_batched']}")
-
-    for B in BATCHES:
-        pose = runs[B].pose
-        for f in ("rotation", "translation", "scale"):
-            x = getattr(pose, f)
-            if not bool(torch.isfinite(x).all()):
-                raise AssertionError(f"B={B}: non-finite {f}")
+        out[name], aux = timed_run(f"slice {name}", track, B, frames, dev,
+                                   profile)
+        for k, n in out[name]["launches"].items():
+            total[k] += n
+        poses[name] = aux.pose
         gt = {k: torch.from_numpy(data[B][k][1:]).to(dev)
               for k in ("rotation", "translation", "scale")}
-        rdiff = metrics.rot_diff_degree(gt["rotation"], pose.rotation,
+        rdiff = metrics.rot_diff_degree(gt["rotation"], aux.pose.rotation,
                                         yaxis_only=cfg.obj.sym)
-        tdiff = metrics.trans_diff(gt["translation"], pose.translation)
-        log(f"slice B={B}: error to the synthetic truth (random weights): "
+        tdiff = metrics.trans_diff(gt["translation"], aux.pose.translation)
+        log(run_msg(f"slice {name}", out[name], frames) + f"; FPS launches "
+            f"{_frame_launches(out[name]['launches'], REPEATS * (frames - 1))}"
+            f" a frame; error to the synthetic truth (random weights): "
             f"rotation mean {float(rdiff.mean()):.2f} deg, last frame "
             f"{float(rdiff[-1].mean()):.2f} deg; translation mean "
             f"{float(tdiff.mean()):.4f} m")
 
-    with plain_fps_on_card():
-        for B in BATCHES:
-            _, aux = track(B)
-            diff = _max_pose_diff(runs[B].pose, aux.pose)
-            log(f"slice B={B}: kernels vs plain FPS on {dev}, max |diff| "
-                f"{diff}")
-            if max(diff.values()) > POSE_TOL or not torch.equal(
-                    runs[B].pred_labels, aux.pred_labels):
-                raise AssertionError(f"B={B}: poses with the kernels differ "
-                                     f"from the plain FPS by {diff}")
-
-    # information only: GPU and CPU matmuls round differently, which can
-    # move a neighbour across a ball-query radius
-    cpu_step = make_track_step(cfg, copy.deepcopy(coord).cpu(),
-                               copy.deepcopy(rotn).cpu(), device="cpu")
-    _, cpu_aux = track_trajectory(
-        cpu_step, init[1].to("cpu"),
-        {"points": torch.from_numpy(data[1]["points"][:2])}, device="cpu")
-    log(f"slice B=1 first tracked frame, card vs CPU (not a gate): "
-        f"{_max_pose_diff(runs[1].pose[:1].to('cpu'), cpu_aux.pose)}")
-
-    if profile:
-        for B in BATCHES:
-            profile_window(lambda: track(B, 4), 3, B, profile)
-    return {"launches": launches, "per_b": per_b}
+    if "b1" in out:
+        # information only: GPU and CPU matmuls round differently, which can
+        # move a neighbour across a ball-query radius
+        cpu_step = make_track_step(base, *(copy.deepcopy(m).cpu()
+                                           for m in nets(base)), device="cpu")
+        _, cpu_aux = track_trajectory(
+            cpu_step, init[1].to("cpu"),
+            {"points": torch.from_numpy(data[1]["points"][:2])}, device="cpu")
+        log(f"slice b1 first tracked frame, card vs CPU (not a gate): "
+            f"{_max_pose_diff(poses['b1'][:1].to('cpu'), cpu_aux.pose)}")
+    return {"launches": total, "runs": out,
+            "dtype": compare_dtypes("slice", out, poses)}
 
 
-def check_launches(sliced: dict) -> None:
-    """Every kernel launched on the main path, 4 sweeps per tracked frame
-    split between the kernels by B."""
+def check_launches(sliced: dict, runs=SLICE_RUNS, frames: int = T) -> None:
+    """Every kernel launched on the main path, each run's launches a tracked
+    frame 4 sweeps split between the kernels by B, times its passes."""
     from captra_tpu_torch.ops import fps
-    tracked = REPEATS * (T - 1)
-    for B in BATCHES:
-        want = ({"fps_cuda_wide": 2 * tracked, "fps_cuda_batched": 2 * tracked}
+    tracked = REPEATS * (frames - 1)
+    for name, B, _, _, passes in runs:
+        want = ({"fps_cuda_wide": 2, "fps_cuda_batched": 2}
                 if B < fps.WIDE_MAX_BATCH else
-                {"fps_cuda_wide": 0, "fps_cuda_batched": 4 * tracked})
-        got = {k: sliced["per_b"][B][k] for k in want}
+                {"fps_cuda_wide": 0, "fps_cuda_batched": 4})
+        want = {k: n * passes * tracked for k, n in want.items()}
+        got = {k: sliced["runs"][name]["launches"][k] for k in want}
         if got != want:
-            raise AssertionError(f"B={B}: FPS launches {got}, expected {want}")
+            raise AssertionError(f"slice {name}: FPS launches {got}, "
+                                 f"expected {want}")
     for name in SLICE_KERNELS:
         if sliced["launches"][name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
@@ -750,14 +853,13 @@ def phase_otf(device: str = "cuda", profile: str | None = None,
               kernels: dict | None = None) -> dict:
     """The OTF path: each run of OTF_RUNS tracks a depth video of `frames`
     frames; returns per run the launches of its timed runs, ms per step and
-    the profile.  With `kernels` (phase_kernels' results) the runs of
-    VIDEO_RUNS add their kernels' cases on the video's own FPS inputs.
-    `device`, a short `frames` and a small `config(fps_mode=)` let the
-    phase be rehearsed on the CPU with the plain FPS."""
+    the profile, and each bfloat16 run against its float32 twin.  With
+    `kernels` (phase_kernels' results) the runs of VIDEO_RUNS add their
+    kernels' cases on the video's own FPS inputs.  `device`, a short
+    `frames` and a small `config(fps_mode=, compute_dtype=)` let the phase
+    be rehearsed on the CPU with the plain FPS."""
     from captra_tpu_torch.config.presets import nocs_bottle_otf
     from captra_tpu_torch.data import depth_frames
-    from captra_tpu_torch.models.coordnet import CoordNet
-    from captra_tpu_torch.models.rotnet import RotNet
     from captra_tpu_torch.ops import fps
     from captra_tpu_torch.tracking.tracker import (
         make_track_step, track_trajectory,
@@ -766,14 +868,7 @@ def phase_otf(device: str = "cuda", profile: str | None = None,
     dev = torch.device(device)
     config = config or nocs_bottle_otf
     base = config()
-    gen = torch.Generator().manual_seed(SEED)
-    nets = {"exact": (CoordNet(base, device=dev, generator=gen),
-                      RotNet(base, device=dev, generator=gen))}
-    grouped = config(fps_mode="grouped")
-    nets["grouped"] = (CoordNet(grouped, device=dev), RotNet(grouped,
-                                                              device=dev))
-    for src, dst in zip(nets["exact"], nets["grouped"]):
-        dst.load_state_dict(src.state_dict())
+    nets = seeded_nets(config, dev)
     P = base.obj.num_parts
 
     videos = {}
@@ -788,43 +883,26 @@ def phase_otf(device: str = "cuda", profile: str | None = None,
                      init.to(dev))
     log(f"otf: {base.obj.name}, {base.num_points} points from a "
         f"{H}x{W} depth video, work factor {base.track.otf_work_factor}, "
-        f"compute_dtype {base.network.compute_dtype}, T={frames}, on {dev}")
+        f"T={frames}, on {dev}")
 
     out, poses, tracks = {}, {}, {}
-    for name, B, mode, blocked in runs:
-        step = make_track_step(config(fps_mode=mode), *nets[mode],
-                               device=dev)
+    for name, B, mode, blocked, kwargs in runs:
+        cfg = config(fps_mode=mode, **kwargs)
+        step = make_track_step(cfg, *nets(cfg), device=dev)
         video, init = videos[B]
 
-        def track(upto=frames):
+        def track(upto, step=step, video=video, init=init):
             return track_trajectory(step, init,
                                     {k: v[:upto] for k, v in video.items()},
                                     device=dev)
 
         with blocked_fps(blocked):
-            track(3)                                  # warm-up
-            sync(dev)
-            fps.reset_launch_counts()
-            steps_ms, aux = time_track(track, frames - 1, dev)
-            launches = dict(fps.launch_counts)
-            for f in ("rotation", "translation", "scale"):
-                if not bool(torch.isfinite(getattr(aux.pose, f)).all()):
-                    raise AssertionError(f"otf {name}: non-finite {f}")
-            with plain_fps_on_card():
-                _, plain = track()
-            diff = _max_pose_diff(aux.pose, plain.pose)
-            log(f"otf {name}: kernels vs plain FPS on {dev}, max |diff| "
-                f"{diff}")
-            if max(diff.values()) > POSE_TOL or not torch.equal(
-                    aux.pred_labels, plain.pred_labels):
-                raise AssertionError(f"otf {name}: poses with the kernels "
-                                     f"differ from the plain FPS by {diff}")
-            prof = (profile_window(lambda: track(4), 3, B, profile,
-                                   tag=f"otf_{name}") if profile else None)
+            out[name], aux = timed_run(f"otf {name}", track, B, frames, dev,
+                                       profile)
             if kernels is not None and name in VIDEO_RUNS:
                 calls = {}
                 with recording_fps(calls):
-                    track()
+                    track(frames)
                 roles = {base.num_points * base.track.otf_work_factor:
                          "crop", base.num_points: "sa1"}
                 for (n, npoint), clouds in sorted(calls.items(),
@@ -835,22 +913,17 @@ def phase_otf(device: str = "cuda", profile: str | None = None,
                                 CROP_VIDEO if role == "crop" else SA_VIDEO)
         poses[name] = aux.pose
         tracks[name] = (track, blocked)
-        ms = float(np.median(steps_ms))
-        out[name] = dict(B=B, fps_mode=mode, blocked=blocked,
-                         launches=launches, ms_per_step=ms,
-                         ms_per_step_runs=steps_ms,
-                         frames_per_s=B * 1e3 / ms, profile=prof)
-        msg = (f"otf {name}: {ms:.2f} ms per tracked step of {B} frame(s) "
-               f"(median of {REPEATS} runs of {frames - 1} steps; min "
-               f"{min(steps_ms):.2f}, max {max(steps_ms):.2f}), "
-               f"{B * 1e3 / ms:.1f} tracked frames/s")
+        run = out[name]
+        run.update(fps_mode=mode, blocked=blocked,
+                   compute_dtype=cfg.network.compute_dtype)
+        ms, prof = run["ms_per_step"], run["profile"]
+        msg = run_msg(f"otf {name}", run, frames)
         if B == 1:
             msg += (f"; {'within' if ms <= CAMERA_MS else 'ABOVE'} the "
                     f"{CAMERA_MS} ms camera limit")
         if prof:
             fps_ms = prof["families_ms"].get("fps", 0.0)
-            out[name].update(fps_share=fps_ms / ms,
-                             busy_share=prof["busy_ms"] / ms)
+            run.update(fps_share=fps_ms / ms, busy_share=prof["busy_ms"] / ms)
             msg += (f"; profile: FPS {fps_ms:.3f} ms per step on the card "
                     f"= {100 * fps_ms / ms:.1f}% of the timed step, card "
                     f"busy {prof['busy_ms']:.2f} ms = "
@@ -858,7 +931,7 @@ def phase_otf(device: str = "cuda", profile: str | None = None,
                     f"({100 * prof['busy_share']:.1f}% of the profiled "
                     f"window), {prof['syncs_in_window']} host syncs in the "
                     "3-step window")
-        log(msg + f"; launches {launches}")
+        log(msg + f"; launches {run['launches']}")
 
     if "b1" in poses and "b1_blocked" in poses:
         for f in ("rotation", "translation", "scale"):
@@ -872,20 +945,21 @@ def phase_otf(device: str = "cuda", profile: str | None = None,
         for name in ("b1_blocked", "b1"):
             track, blocked = tracks[name]
             with blocked_fps(blocked):
-                steps_ms, _ = time_track(track, frames - 1, dev)
+                steps_ms, _ = time_track(lambda: track(frames), frames - 1,
+                                         dev)
             out[name]["ms_per_step_again"] = float(np.median(steps_ms))
         log("otf b1 vs b1_blocked in turns (ms per step, medians of "
             f"{REPEATS}): b1 {out['b1']['ms_per_step']:.2f}, blocked "
             f"{out['b1_blocked']['ms_per_step']:.2f}, blocked "
             f"{out['b1_blocked']['ms_per_step_again']:.2f}, b1 "
             f"{out['b1']['ms_per_step_again']:.2f}")
-    return out
+    return {"runs": out, "dtype": compare_dtypes("otf", out, poses)}
 
 
 def check_otf_launches(otf: dict, frames: int = T) -> None:
     """The launches per tracked frame of each OTF run, as predicted."""
     tracked = REPEATS * (frames - 1)
-    for name, run in otf.items():
+    for name, run in otf["runs"].items():
         want = {k: OTF_LAUNCHES[name].get(k, 0) * tracked
                 for k in run["launches"]}
         if run["launches"] != want:
@@ -906,6 +980,118 @@ def blocked_fps(on: bool):
         if old is not None:
             os.environ["CAPTRA_FPS_BLOCKED"] = old
 
+INIT_SEARCH_K = 64
+INIT_SEG_BIAS = 3.0
+INIT_SEARCH_WHERE = ("the frame-0 orientation search's CoordNet chunk "
+                     f"(K={INIT_SEARCH_K} candidates at B=1), ms a search")
+
+
+def _frame_launches(launches: dict, tracked: int) -> dict:
+    """Launches per tracked frame, kernels that launched only."""
+    return {k: n / tracked for k, n in launches.items() if n}
+
+
+def phase_init_search(config=None, device: str = "cuda",
+                      profile: str | None = None, frames: int = T,
+                      kernels: dict | None = None) -> dict:
+    """The GT-less init on the slice's B=1 trajectory: the cloud's guess
+    (`init_pose_from_cloud`), `search_init_orientation` over INIT_SEARCH_K
+    candidates on frame 0 (median ms of REPEATS searches, the launch
+    counters zeroed just before and read just after, the pose against the
+    same search with the plain FPS), then tracking from the found pose.
+    With `kernels` the search's FPS inputs are recorded and the kernel held
+    against the plain FPS on them.  `device`, a short `frames` and a small
+    `config()` let the phase be rehearsed on the CPU with the plain FPS."""
+    from captra_tpu_torch.config.presets import nocs_bottle
+    from captra_tpu_torch.data.synthetic import (
+        batch_trajectories, make_trajectory,
+    )
+    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.tracking.tracker import (
+        init_pose_from_cloud, make_track_step, search_init_orientation,
+        track_trajectory,
+    )
+
+    dev = torch.device(device)
+    config = config or nocs_bottle
+    base = config()
+    cfg = base.replace(track=dataclasses.replace(
+        base.track, init_frame_gt=False, init_search=INIT_SEARCH_K))
+    points = torch.from_numpy(batch_trajectories([make_trajectory(
+        seed=100, obj=base.obj, num_frames=frames,
+        num_points=base.num_points)])["points"]).to(dev)
+    cloud0 = points[0]
+    guess = init_pose_from_cloud(cloud0, base.obj.num_parts, base.data_radius,
+                                 device=dev)
+    # The random seg head labels the cloud background, which leaves every
+    # candidate without a fit and the search with its guess: its part
+    # logits get INIT_SEG_BIAS, so the search fits and chooses
+    coord, rotn = seeded_nets(config, dev)(base)
+    coord = copy.deepcopy(coord)
+    with torch.no_grad():
+        coord.seg_head.dense_0.bias[:base.obj.num_parts] += INIT_SEG_BIAS
+
+    def search():
+        return search_init_orientation(coord, cloud0, guess, cfg, device=dev)
+
+    search()                                           # warm-up
+    sync(dev)
+    fps.reset_launch_counts()
+    search_ms = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        found = search()
+        sync(dev)
+        search_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(fps.launch_counts)
+    with plain_fps_on_card():
+        plain_found = search()
+    diff = _max_pose_diff(found, plain_found)
+    if max(diff.values()) > POSE_TOL:
+        raise AssertionError(f"init_search: the pose with the kernels "
+                             f"differs from the plain FPS by {diff}")
+    if not bool(torch.isfinite(found.rotation).all()):
+        raise AssertionError("init_search: non-finite pose")
+    passes = max(cfg.track.init_search_steps, 1)
+    want = {**{k: 0 for k in launches},
+            "fps_cuda_batched": 2 * passes * REPEATS}
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"init_search: FPS launches {launches}, "
+                             f"expected {want}")
+    ms = float(np.median(search_ms))
+    out = {"search": dict(B=1, K=INIT_SEARCH_K, ms=ms, ms_runs=search_ms,
+                          launches=launches, plain_fps_diff=diff)}
+    log(f"init_search: K={INIT_SEARCH_K} candidates, {passes} passes, "
+        f"{ms:.2f} ms a search (median of {REPEATS}; min {min(search_ms):.2f}"
+        f", max {max(search_ms):.2f}); FPS launches a search "
+        f"{_frame_launches(launches, REPEATS)}; kernels vs plain FPS, max "
+        f"|diff| {diff}; the found rotation's distance to the guess (max "
+        f"|diff|) {float((found.rotation - guess.rotation).abs().max()):.3f}")
+
+    step = make_track_step(cfg, coord, rotn, device=dev)
+
+    def track(upto):
+        return track_trajectory(step, found, {"points": points[:upto]},
+                                device=dev)
+
+    out["track_b1"], _ = timed_run("init_search track_b1", track, 1, frames,
+                                   dev, profile)
+    log(run_msg("init_search track_b1", out["track_b1"], frames))
+    got = _frame_launches(out["track_b1"]["launches"],
+                          REPEATS * (frames - 1))
+    if dev.type == "cuda" and got != {"fps_cuda_wide": 2.0,
+                                      "fps_cuda_batched": 2.0}:
+        raise AssertionError(f"init_search track_b1: FPS launches a frame "
+                             f"{got}")
+    if kernels is not None:
+        calls = {}
+        with recording_fps(calls):
+            search()
+        for (n, npoint), clouds in sorted(calls.items(), reverse=True):
+            check_video(fps, kernels, ("fps_cuda_batched",), clouds, npoint,
+                        "search", 1, INIT_SEARCH_WHERE, path="init_search")
+    return out
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -918,21 +1104,37 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
 
-    from captra_tpu_torch.config.presets import nocs_bottle
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(phase):
+        seconds[phase] = time.perf_counter() - t0 - sum(seconds.values())
+        log(f"phase {phase}: {seconds[phase]:.1f} s")
+
     phase_device()
+    lap("device")
     kernels = phase_kernels()
-    sliced = phase_slice(nocs_bottle(), profile=args.profile)
+    lap("kernels")
+    sliced = phase_slice(profile=args.profile)
     check_launches(sliced)
+    lap("slice")
     otf = phase_otf(profile=args.profile, kernels=kernels)
     check_otf_launches(otf)
+    lap("otf")
+    init = phase_init_search(profile=args.profile, kernels=kernels)
+    lap("init_search")
 
     line = []
     for name, cases in kernels.items():
         B, N, npoint, where = HEADLINE[name]
         head = next(c for c in cases if (c["B"], c["N"], c["npoint"],
                                          c["where"]) == (B, N, npoint, where))
-        by_path = {"slice": sliced["launches"][name],
-                   **{f"otf_{r}": otf[r]["launches"][name] for r in otf}}
+        by_path = {**{f"slice_{r}": v["launches"][name]
+                      for r, v in sliced["runs"].items()},
+                   **{f"otf_{r}": v["launches"][name]
+                      for r, v in otf["runs"].items()},
+                   **{f"init_{r}": v["launches"][name]
+                      for r, v in init.items()}}
         line.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
@@ -945,8 +1147,10 @@ def main() -> int:
             "launches_by_path": by_path,
             "shapes": cases,
         })
-    log(json.dumps({"slice": {str(B): sliced["per_b"][B] for B in BATCHES}}))
+    log(json.dumps({"slice": sliced}))
     log(json.dumps({"otf": otf}))
+    log(json.dumps({"init_search": init}))
+    log(json.dumps({"seconds": seconds}))
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

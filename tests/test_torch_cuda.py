@@ -107,6 +107,11 @@ _WIDE_THRESHOLDS = (8192, 12288)
     ("fps_cuda_blocked", 2, 24575, 128),
     ("fps_cuda_blocked", 1, 256, 64),      # one row
     ("fps_cuda_blocked", 1, 257, 64),
+    # the frame-0 orientation search's CoordNet chunks (K = 64 candidates
+    # at B = 1 and 2): sa1 and sa2
+    ("fps_cuda_batched", 64, 4096, 512),
+    ("fps_cuda_batched", 128, 4096, 512),
+    ("fps_cuda_batched", 64, 512, 128),
 ])
 def test_kernel_matches_plain(card, name, B, N, npoint):
     xyz = _cloud(B + N, B, N, card)
@@ -255,3 +260,33 @@ def test_grouped_mode_matches_plain(card):
     got = ops.farthest_point_sample(xyz, 512, mode="grouped")
     want = ops.farthest_point_sample(xyz.cpu(), 512, mode="grouped")
     assert torch.equal(got.cpu(), want)
+
+
+def test_bf16_coordnet_on_the_card_matches_its_cpu_copy(card):
+    """The full-width bottle CoordNet in bfloat16 on the card against the
+    same net on the CPU: max |card - cpu| <= 2 max |cpu_bf16 - cpu_f32| +
+    one bfloat16 ulp of the largest |cpu_f32| (the bound
+    tests/test_torch_bf16.py holds the port to against the JAX package),
+    for seg and NPCS; the FPS inputs are float32 on both."""
+    import copy
+
+    from captra_tpu_torch.config.presets import nocs_bottle
+    from captra_tpu_torch.models.coordnet import CoordNet
+
+    cfg = nocs_bottle("bfloat16")
+    net = CoordNet(cfg, device=card,
+                   generator=torch.Generator().manual_seed(0))
+    cpu = copy.deepcopy(net).cpu()
+    cpu32 = CoordNet(nocs_bottle(), device="cpu")
+    cpu32.load_state_dict(cpu.state_dict())
+    pts = _cloud(7, 2, cfg.num_points, "cpu") * 0.3
+    with torch.no_grad():
+        got = net(pts.to(card))
+        want = cpu(pts)
+        want32 = cpu32(pts)
+    for k in ("seg", "nocs"):
+        g, w, w32 = (x[k].double().cpu() for x in (got, want, want32))
+        err = float((w - w32).abs().max())
+        eps = 2.0 ** -8 * float(w32.abs().max())
+        assert err > 0
+        assert float((g - w).abs().max()) <= 2 * err + eps, k

@@ -1,6 +1,5 @@
-"""The port stands alone: it imports neither JAX, flax nor `captra_tpu`, its
-entry points refuse to run quietly on the CPU, and the options it does not
-carry yet raise instead of being ignored."""
+"""The port stands alone: it imports neither JAX, flax nor `captra_tpu`, and
+its entry points refuse to run quietly on the CPU."""
 import dataclasses
 import os
 import re
@@ -16,7 +15,10 @@ from captra_tpu_torch.config.presets import NOCS_BOTTLE_OVERRIDES, nocs_bottle
 from captra_tpu_torch.models.coordnet import CoordNet
 from captra_tpu_torch.models.rotnet import RotNet
 from captra_tpu_torch.pose.part_dof import Pose
-from captra_tpu_torch.tracking.tracker import make_track_step, track_trajectory
+from captra_tpu_torch.tracking.tracker import (
+    init_pose_from_cloud, make_track_step, search_init_orientation,
+    track_trajectory,
+)
 from captra_tpu_torch.training.convert import coordnet_from_flax
 from tests.torch_port_helpers import tiny_config
 
@@ -79,6 +81,11 @@ def _entry_points(cfg):
         "track_trajectory": lambda: track_trajectory(
             None, Pose.identity((1, 1)), {"points": np.zeros((2, 1, 8, 3))}),
         "coordnet_from_flax": lambda: coordnet_from_flax(cfg, {}),
+        "init_pose_from_cloud": lambda: init_pose_from_cloud(
+            np.zeros((1, 8, 3), np.float32), 1),
+        "search_init_orientation": lambda: search_init_orientation(
+            None, np.zeros((1, 8, 3), np.float32), Pose.identity((1, 1)),
+            cfg),
     }
 
 
@@ -87,37 +94,6 @@ def test_entry_points_need_cuda_or_an_explicit_device(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points(tiny_config(schema))[name]()
-
-
-_UNPORTED_TRACK = {
-    "track_cfg/motion_model": dict(motion_model="const_vel"),
-    "track_cfg/refine_iters": dict(refine_iters=2),
-    "track_cfg/conf_weighted_delta": dict(conf_weighted_delta=True),
-    "track_cfg/rot_fit": dict(rot_fit="npcs"),
-    "track_cfg/delta_gain": dict(delta_gain=1.5),
-    "track_cfg/scale_clamp": dict(scale_clamp=0.1),
-    "track_cfg/fit_ransac": dict(fit_ransac=8),
-}
-
-
-@pytest.mark.parametrize("field", sorted(_UNPORTED_TRACK))
-def test_unported_track_options_raise(field):
-    cfg = tiny_config(schema)
-    cfg = cfg.replace(track=dataclasses.replace(cfg.track,
-                                                **_UNPORTED_TRACK[field]))
-    with pytest.raises(NotImplementedError, match=re.escape(field)):
-        make_track_step(cfg, None, None, device="cpu")
-
-
-@pytest.mark.parametrize("net_cls", [CoordNet, RotNet])
-@pytest.mark.parametrize("field,value", [("compute_dtype", "bfloat16"),
-                                         ("basin_head", True)])
-def test_unported_network_options_raise(net_cls, field, value):
-    cfg = tiny_config(schema)
-    cfg = cfg.replace(network=dataclasses.replace(cfg.network,
-                                                  **{field: value}))
-    with pytest.raises(NotImplementedError, match=f"network/{field}"):
-        net_cls(cfg, device="cpu")
 
 
 def test_code_built_bottle_config_equals_yaml():
