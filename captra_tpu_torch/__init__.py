@@ -9,9 +9,11 @@ counterpart under the same path there:
   pose      -- rotations, Procrustes, per-part pose algebra, metrics
   ops       -- point-cloud ops; FPS as hand-written CUDA kernels (csrc/)
   models    -- PointNet++ backbone, CoordNet, RotNet (torch.nn)
-  tracking  -- the frame-recurrent tracking loop
-  training  -- flax-variables -> port-module converter
-  data      -- numpy synthetic trajectories
+  tracking  -- the frame-recurrent tracking loop, saved results
+  training  -- flax variables <-> port modules, checkpoint files
+  data      -- numpy synthetic trajectories, OTF preprocessing
+  eval      -- the offline evaluator (pose errors, 3D IoU, joint states)
+  cli       -- `python -m captra_tpu_torch.cli.track` / `.evaluate`
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; without a
 card and without an explicit device they raise.

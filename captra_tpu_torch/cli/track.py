@@ -1,0 +1,246 @@
+"""Tracking entry point (counterpart of `captra_tpu/cli/track.py`).
+
+    python -m captra_tpu_torch.cli.track --coord_exp/dir=<coord exp> \\
+        --experiment_dir=<rot exp> --synthetic_data [--save] [flags]
+
+Loads a CoordNet experiment's and a RotNet experiment's checkpoints (the
+JAX package's pickle files, `training/checkpoint.py`), tracks each batch of
+trajectories frame by frame on the card, prints each batch's time and
+errors and the averages, and with `--save` writes one result pickle a
+trajectory for `captra_tpu_torch.cli.evaluate` (or the JAX package's).
+
+Where the port differs from the JAX CLI:
+
+- the frame-0 noise (`init_frame/gt` false) and the OTF crop's shifts come
+  from one `torch.Generator` seeded by `seed`, drawn in sequence order;
+  the JAX `jax.random.split` stream cannot be reproduced;
+- no length buckets: the JAX CLI pads each trajectory to a bucket length
+  to share one XLA compile; an eager loop compiles nothing, so the port
+  tracks exactly T frames;
+- the saved GT corners are each trajectory's own (`synthetic_sequences`
+  yields them as [1, B, P, 2, 3], the real-data layout), where the JAX CLI
+  indexes the synthetic layout [B, P, 2, 3] as if it were that one.
+
+Not ported yet, each raising `NotImplementedError`: the real-data branch
+(no `--synthetic_data`), `--num_devices` > 1, orbax checkpoint
+directories.  `main(argv, device="cpu")` runs on the CPU; without it the
+card is required.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from os.path import join as pjoin
+
+import numpy as np
+import torch
+
+from captra_tpu_torch.cli.args import add_args, config_overrides
+from captra_tpu_torch.config import get_config
+from captra_tpu_torch.device import resolve_device
+from captra_tpu_torch.pose.part_dof import Pose
+from captra_tpu_torch.tracking.results import (
+    corners_from_track_aux, save_track_result,
+)
+from captra_tpu_torch.tracking.tracker import (
+    evaluate_track, init_pose_from_cloud, init_pose_from_gt,
+    make_track_step, search_init_orientation, track_trajectory,
+)
+from captra_tpu_torch.training import checkpoint as ckpt
+from captra_tpu_torch.training.convert import (
+    coordnet_from_flax, rotnet_from_flax,
+)
+
+# frames of the untimed warm-up per batch size (one tracked step: the
+# first call builds the FPS kernels)
+WARMUP_FRAMES = 2
+# seed of the step's own generator (the RANSAC draws of `fit_ransac`)
+STEP_SEED = 13
+
+
+def load_variables(cfg, args):
+    """The coord and rot experiments' checkpoints (the newest, or the pinned
+    epochs) as flax variable trees."""
+    coord_dir = pjoin(cfg.coord_exp_dir, "ckpt")
+    rot_dir = pjoin(cfg.experiment_dir, "ckpt")
+    coord_path = ckpt.latest_checkpoint(
+        coord_dir, cfg.coord_resume_epoch if cfg.coord_resume_epoch >= 0
+        else None)
+    rot_path = ckpt.latest_checkpoint(
+        rot_dir, args.resume_epoch if args.resume_epoch >= 0 else None)
+    if not coord_path or not rot_path:
+        raise FileNotFoundError(
+            f"checkpoints not found: coord={coord_path} rot={rot_path}")
+    return ckpt.load_track_variables(coord_path, rot_path)
+
+
+def build_step(cfg, cv, rv, device=None):
+    """The tracking step over the nets built from flax variables cv / rv on
+    `device` (CUDA unless given), in eval mode; the CoordNet rides on it as
+    `step.coord_fn` for the frame-0 orientation search."""
+    device = resolve_device(device)
+    coord = coordnet_from_flax(cfg, cv, device=device)
+    rotn = rotnet_from_flax(cfg, rv, device=device)
+    generator = torch.Generator(device=device).manual_seed(STEP_SEED)
+    step = make_track_step(cfg, coord, rotn, device=device,
+                           generator=generator)
+    step.coord_fn = coord
+    return step
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _first(batch: dict, key: str):
+    value = batch.get(key)
+    return None if value is None else torch.as_tensor(np.asarray(value[0]))
+
+
+def track_sequences(cfg, step, sequences, save: bool = False,
+                    no_eval: bool = False, seed: int = 0, device=None):
+    """Track `sequences`, an iterator of (name | names-tuple, batch) with
+    leading [T, B, ...]: the B trajectories of a batch track together.
+    A batch carries points (and labels), or with `track_cfg/nocs_otf` depth
+    and mask (and the crop's shift [T, B], else drawn here; and the NOCS-2D
+    detections); "pose" (a `Pose` [T, B, P]) and "corners" [T or 1, B, P,
+    2, 3] when it has GT.  Returns {metric: [per-trajectory average]}."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    all_avgs, total_frames, total_time = {}, 0, 0.0
+    warmed: set[int] = set()
+    for name, batch in sequences:
+        names = (name,) if isinstance(name, str) else tuple(name)
+        gt = batch.get("pose")
+        if gt is not None:
+            gt = gt.map(lambda x: torch.as_tensor(np.asarray(x)))
+            init_pose = init_pose_from_gt(
+                gt[0], cfg, generator=gen,
+                crop_translation=_first(batch, "crop_translation"),
+                crop_scale=_first(batch, "crop_scale"))
+        else:
+            # a GT-less capture: frame 0 from the cloud itself, then the
+            # orientation search when asked for
+            points0 = torch.as_tensor(np.asarray(batch["points"][0]))
+            init_pose = init_pose_from_cloud(points0, cfg.obj.num_parts,
+                                             cfg.data_radius, device=device)
+            coord_fn = getattr(step, "coord_fn", None)
+            if cfg.track.init_search > 0 and coord_fn is not None:
+                init_pose = search_init_orientation(coord_fn, points0,
+                                                    init_pose, cfg,
+                                                    device=device)
+        if cfg.track.nocs_otf and "depth" in batch:
+            T, B = batch["depth"].shape[:2]
+            H, W = batch["depth"].shape[-2:]
+            shift = batch.get("shift")
+            if shift is None:
+                shift = torch.randint(0, H * W, (T, B), generator=gen)
+            frames = {"depth": batch["depth"], "mask": batch["mask"],
+                      "shift": shift}
+            if cfg.track.nocs2d_label and "det_masks" in batch:
+                for k in ("det_masks", "det_boxes", "det_valid"):
+                    frames[k] = batch[k]
+        else:
+            T = batch["points"].shape[0]
+            frames = {"points": batch["points"]}
+            if cfg.track.gt_label:
+                frames["labels"] = batch["labels"]
+        frames = {k: torch.as_tensor(np.asarray(v)).to(device)
+                  for k, v in frames.items()}
+        B = len(names)
+        if B not in warmed:
+            # one untimed warm-up per batch size: the first call builds
+            # the FPS kernels
+            track_trajectory(step, init_pose,
+                             {k: v[:WARMUP_FRAMES] for k, v in frames.items()},
+                             device=device)
+            _sync(device)
+            warmed.add(B)
+        _sync(device)
+        t0 = time.perf_counter()
+        _, aux = track_trajectory(step, init_pose, frames, device=device)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        total_frames += (T - 1) * B
+        total_time += dt
+        print(f"{'|'.join(names)}: {T - 1} frames x {B} in {dt:.3f}s "
+              f"({(T - 1) * B / dt:.1f} fps)")
+
+        if gt is not None and not no_eval:
+            gt_rest = gt.map(lambda x: x[1:].to(device))
+            errs = evaluate_track(aux.pose, gt_rest, sym=cfg.obj.sym)
+            for b, nm in enumerate(names):
+                avg = {k: float(torch.mean(v[:, b])) for k, v in errs.items()}
+                for k, v in avg.items():
+                    all_avgs.setdefault(k, []).append(v)
+                print(f"  {nm}: " + "  ".join(
+                    f"{k}={v:.4f}" for k, v in avg.items()))
+
+        if save:
+            pred_corners_all = corners_from_track_aux(aux, cfg.obj.num_parts)
+            for b, nm in enumerate(names):
+                gt_corners = (np.asarray(batch["corners"][0, b])
+                              if "corners" in batch else None)
+                save_track_result(
+                    pjoin(cfg.experiment_dir, "results"),
+                    nm.replace("/", "_"), aux.pose.map(lambda x: x[:, b]),
+                    None if gt is None else gt.map(lambda x: x[1:, b]),
+                    pred_corners_all[:, b], gt_corners,
+                    # tracked frames are 1..T-1 (frame 0's pose is given)
+                    frame_nums=[[t] for t in range(1, T)])
+    if total_time > 0:
+        print(f"TOTAL: {total_frames} frames, "
+              f"{total_frames / total_time:.1f} fps")
+    if all_avgs:
+        print("AVG: " + "  ".join(
+            f"{k}={np.mean(v):.4f}" for k, v in sorted(all_avgs.items())))
+    return all_avgs
+
+
+def synthetic_sequences(cfg, count: int = 4, num_frames: int = 20):
+    """Generated trajectories, `cfg.batch_size` a batch, with the JAX
+    generator's numbers; "corners" in the real-data layout [1, B, P, 2, 3],
+    so corners[0, b] is trajectory b's own box."""
+    from captra_tpu_torch.data.synthetic import (
+        batch_trajectories, make_trajectory,
+    )
+    B = max(1, min(cfg.batch_size, count))
+    for start in range(0, count, B):
+        seeds = range(start, min(start + B, count))
+        trs = [make_trajectory(seed=s, obj=cfg.obj, num_frames=num_frames,
+                               num_points=cfg.num_points) for s in seeds]
+        names = tuple(f"synthetic/{s:04d}" for s in seeds)
+        batch = batch_trajectories(trs)
+        batch["corners"] = batch["corners"][None]
+        yield (names[0] if len(names) == 1 else names), batch
+
+
+def parse(argv=None):
+    """(args, cfg) of a track command line."""
+    parser = add_args(argparse.ArgumentParser("captra-tpu-torch track"))
+    args = parser.parse_args(argv)
+    if args.num_devices is not None and args.num_devices > 1:
+        raise NotImplementedError(
+            f"--num_devices={args.num_devices}: the port tracks on one "
+            "device")
+    if not args.synthetic_data:
+        raise NotImplementedError(
+            "tracking a dataset on disk (no --synthetic_data): the port's "
+            "host readers are not ported yet")
+    return args, get_config(args.config, config_overrides(args),
+                            args.config_dir)
+
+
+def main(argv=None, device=None):
+    device = resolve_device(device)
+    args, cfg = parse(argv)
+    cv, rv = load_variables(cfg, args)
+    step = build_step(cfg, cv, rv, device=device)
+    return track_sequences(cfg, step, synthetic_sequences(cfg),
+                           save=args.save, no_eval=args.no_eval,
+                           device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -11,9 +11,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from captra_tpu_torch.config.schema import ObjCfg
-from captra_tpu_torch.pose.part_dof import tree_root
+from captra_tpu_torch.pose.part_dof import Pose, tree_root
 
 
 @dataclass
@@ -153,7 +154,14 @@ def make_trajectory(seed: int, obj: ObjCfg, num_frames: int = 30,
 
 
 def batch_trajectories(trajs: list[Trajectory]) -> dict:
-    """Stack B same-shape trajectories into arrays [T, B, ...]."""
-    return {name: np.stack([getattr(t, name) for t in trajs], axis=1)
-            for name in ("points", "labels", "nocs", "rotation",
-                         "translation", "scale")}
+    """Stack B same-shape trajectories into arrays [T, B, ...]: points,
+    labels, nocs, rotation, translation, scale; as the JAX function gives
+    them, also "pose", a `Pose` [T, B, P] of CPU tensors over the same
+    arrays, and "corners" [B, P, 2, 3]."""
+    out = {name: np.stack([getattr(t, name) for t in trajs], axis=1)
+           for name in ("points", "labels", "nocs", "rotation",
+                        "translation", "scale")}
+    out["pose"] = Pose(*(torch.from_numpy(out[k])
+                         for k in ("rotation", "translation", "scale")))
+    out["corners"] = np.stack([t.corners for t in trajs])
+    return out

@@ -13,7 +13,10 @@ walk:
   `heads` (the JAX RotNet's part-vmapped head) carries a leading [P] axis on
           every leaf; part p loads into `regressor.heads.{p}`.
 
-Loading the reference's torch `.pt` checkpoints is a later slice.
+`flax_variables` is the inverse: a port module back to the flax tree, so
+the port writes checkpoints in the JAX package's layout
+(`training/checkpoint.py`).  Loading the reference's torch `.pt`
+checkpoints is a later slice.
 """
 from __future__ import annotations
 
@@ -80,6 +83,43 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
                              f"flax {tuple(value.shape)}")
     module.load_state_dict(state, strict=False)
     return module
+
+
+def flax_variables(module: nn.Module) -> dict:
+    """The flax variable tree {"params", "batch_stats"} of a port module, as
+    nested dicts of float32 numpy arrays (the inverse of `flax_state_dict`):
+    Linear weights transposed back to kernels, norm weights named scale,
+    `heads.{p}` stacked on a leading [P] axis."""
+    tree: dict = {"params": {}, "batch_stats": {}}
+    stacked: dict = {}
+    for key, value in module.state_dict().items():
+        *mods, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        value = value.detach().cpu().float().numpy()
+        if leaf in ("running_mean", "running_var"):
+            collection, name = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight":
+            collection, name = "params", ("kernel" if value.ndim == 2
+                                          else "scale")
+        else:
+            collection, name = "params", leaf
+        value = _torch_leaf(name, value)
+        if _STACKED in mods:
+            at = mods.index(_STACKED) + 1
+            path = (collection, *mods[:at], *mods[at + 1:], name)
+            stacked.setdefault(path, {})[int(mods[at])] = value
+            continue
+        _put(tree, (collection, *mods, name), value)
+    for path, parts in stacked.items():
+        _put(tree, path, np.stack([parts[p] for p in range(len(parts))]))
+    return tree
+
+
+def _put(tree: dict, path: tuple, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
 
 
 def coordnet_from_flax(cfg: Config, variables: Mapping,

@@ -56,7 +56,25 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 tracking from the found pose as a slice run; the search's
                 FPS inputs are recorded and the kernel held against the
                 plain FPS on them.
-  6. summary -- JSON lines of the paths and of the kernels, then, as the
+  6. cli     -- the track and evaluate CLIs as a user runs them: the seeded
+                nets written as a coord and a rot experiment (the JAX
+                package's pickle checkpoints), then
+                `captra_tpu_torch.cli.track.main` with the CLI's defaults
+                (4 synthetic trajectories of T=20 frames at B=4, 4096
+                points, `pointnet2_camera`, `--save`) for the SAPIEN laptop
+                (2 parts, grid IoU and joint states) and the NOCS bottle
+                (symmetric, axis-aligned IoU over the 20-way sweep), each
+                followed by `cli.evaluate.main` without and with IoU.
+                Counters zeroed just before each track run and read just
+                after: FPS launches a tracked frame as `route` predicts;
+                4 result pickles, finite poses within 1e-4 of
+                `track_trajectory` on the same nets and init draws (the
+                checkpoint round trip); err.csv with 4 x 19 rows and every
+                metric.  The twin run's FPS inputs are recorded and each
+                kernel held against the plain FPS on them.  Frames/s as
+                the CLI prints it, ms a step, checkpoint load and evaluate
+                seconds, the AVG metrics.
+  7. summary -- JSON lines of the paths and of the kernels, then, as the
                 last line, {"ok": true, "device": {...}}.
 
 --profile DIR adds a torch.profiler window over a few tracked frames to each
@@ -73,8 +91,11 @@ import copy
 import dataclasses
 import json
 import os
+import io
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -107,6 +128,7 @@ KERNEL_CASES = (
     ("fps_cuda_batched", 9, 512, 128, "the last CTA of warps part full"),
     ("fps_cuda_batched", 13, 513, 128, "one point past a warp's cloud"),
     ("fps_cuda_wide", 1, 4096, 512, "sa1 at B=1"),
+    ("fps_cuda_wide", 4, 4096, 512, "sa1 of the track CLI, B=4"),
     ("fps_cuda_wide", 1, 4100, 512, "ragged N"),
     ("fps_cuda_wide", 2, 16384, 1024, "the wide kernel's one-CTA bound"),
     ("fps_cuda_wide", 1, 20480, 4096, "Gaussian cloud, the OTF crop's "
@@ -1092,6 +1114,183 @@ def phase_init_search(config=None, device: str = "cuda",
                         "search", 1, INIT_SEARCH_WHERE, path="init_search")
     return out
 
+# the track CLI's runs: (name, flags on top of the CLI's defaults), and the
+# FPS launches each tracked frame must make by `route` at B=4: CoordNet's
+# sa1 [4,4096] -> wide, sa2 [4,512] -> batched; RotNet's clouds are B x P,
+# so the laptop's [8,4096] and [8,512] -> batched, the bottle's as CoordNet's
+CLI_RUNS = (("laptop", []),
+            ("bottle", ["--obj_config", "obj_info_nocs.yml",
+                        "--obj_category", "1"]))
+CLI_LAUNCHES = {"laptop": {"fps_cuda_wide": 1, "fps_cuda_batched": 3},
+                "bottle": {"fps_cuda_wide": 2, "fps_cuda_batched": 2}}
+CLI_TRAJECTORIES = 4        # the CLI's synthetic trajectories ...
+CLI_FRAMES = 20             # ... and their frames
+CLI_VIDEO = "the track CLI's FPS inputs (B=4), ms a frame"
+_BATCH_LINE = re.compile(r"^(\S+): (\d+) frames x (\d+) in ([0-9.]+)s "
+                         r"\(([0-9.]+) fps\)$", re.M)
+
+
+def _printed(fn, *args, **kwargs):
+    """(stdout of fn(*args, **kwargs), its result, seconds)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        ret = fn(*args, **kwargs)
+    return out.getvalue(), ret, time.perf_counter() - t0
+
+
+def _eval_metrics(num_parts: int, iou: bool) -> set:
+    """The err.csv columns `eval_trajectory` gives an object."""
+    names = ["rdiff", "tdiff", "sdiff", "5deg5cm", "10deg10cm"]
+    if iou:
+        names += ["npcs_iou", "iou", "gt_bbox_iou"]
+    cols = {f"{m}_{j}" for m in names for j in range(num_parts)}
+    if num_parts > 1:
+        cols |= {f"theta_diff_{j}" for j in range(num_parts - 1)}
+    return cols
+
+
+def phase_cli(kernels: dict) -> dict:
+    """The track and evaluate CLIs on the card for each run of CLI_RUNS,
+    from checkpoints written in a temporary directory, with the FPS kernels
+    held on the run's recorded inputs (into `kernels`); returns per run its
+    launches, frames/s, ms a step, load and evaluate seconds and AVG
+    metrics."""
+    import csv
+    import pickle
+
+    from captra_tpu_torch.cli import evaluate, track
+    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.tracking.tracker import (
+        init_pose_from_gt, make_track_step, track_trajectory,
+    )
+    from captra_tpu_torch.training import checkpoint
+    from captra_tpu_torch.training.convert import flax_variables
+
+    dev = torch.device("cuda")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="captra_cli_") as tmp:
+        for name, flags in CLI_RUNS:
+            coord_dir = os.path.join(tmp, name, "coord")
+            rot_dir = os.path.join(tmp, name, "rot")
+            common = ["--experiment_dir", rot_dir, "--coord_exp/dir",
+                      coord_dir, *flags]
+            argv = ["--synthetic_data", "--save", *common]
+            args, cfg = track.parse(argv)
+            nets = seeded_nets(lambda cfg=cfg: cfg, dev)(cfg)
+            for exp, net in ((coord_dir, nets[0]), (rot_dir, nets[1])):
+                checkpoint.save_checkpoint(os.path.join(exp, "ckpt"), 0,
+                                           flax_variables(net))
+            t0 = time.perf_counter()
+            cv, rv = track.load_variables(cfg, args)
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            track.build_step(cfg, cv, rv, device=dev)
+            sync(dev)
+            build_s = time.perf_counter() - t0
+            log(f"cli {name}: {cfg.obj.name}, {cfg.obj.num_parts} part(s), "
+                f"{cfg.num_points} points, batch size {cfg.batch_size}; "
+                f"checkpoints loaded in {load_s:.3f} s, nets built on {dev} "
+                f"in {build_s:.3f} s")
+
+            sync(dev)
+            fps.reset_launch_counts()
+            text, _, track_s = _printed(track.main, argv, device=dev)
+            launches = dict(fps.launch_counts)
+            for line in text.strip().splitlines():
+                log(f"  | {line}")
+            batches = _BATCH_LINE.findall(text)
+            B = int(batches[0][2])
+            if [int(b[1]) for b in batches] != [CLI_FRAMES - 1] or \
+                    B != min(cfg.batch_size, CLI_TRAJECTORIES):
+                raise AssertionError(f"cli {name}: batches {batches}")
+            steps = CLI_FRAMES - 1 + track.WARMUP_FRAMES - 1
+            want = {k: CLI_LAUNCHES[name].get(k, 0) * steps
+                    for k in launches}
+            if launches != want:
+                raise AssertionError(f"cli {name}: FPS launches {launches}, "
+                                     f"expected {want}")
+            total_fps = float(re.search(r"^TOTAL: \d+ frames, ([0-9.]+) fps",
+                                        text, re.M).group(1))
+            avg = dict(re.findall(r"(\S+)=(\S+)", next(
+                ln for ln in text.splitlines() if ln.startswith("AVG: "))))
+
+            data = os.path.join(rot_dir, "results", "data")
+            files = sorted(os.listdir(data))
+            if len(files) != CLI_TRAJECTORIES:
+                raise AssertionError(f"cli {name}: {len(files)} result "
+                                     "pickles")
+            saved = []
+            for f in files:
+                with open(os.path.join(data, f), "rb") as fh:
+                    saved.append(pickle.load(fh))
+            # the twin: the same nets (not through a checkpoint), the same
+            # init draws, `track_trajectory` directly; its FPS inputs
+            step = make_track_step(cfg, *nets, device=dev)
+            _, batch = next(track.synthetic_sequences(cfg))
+            init = init_pose_from_gt(batch["pose"][0], cfg,
+                                     generator=torch.Generator()
+                                     .manual_seed(0))
+            calls = {}
+            with recording_fps(calls):
+                _, aux = track_trajectory(step, init,
+                                          {"points": batch["points"]},
+                                          device=dev)
+            diff = {}
+            for f in ("rotation", "translation", "scale"):
+                got = np.stack([r["pred"]["poses"][f] for r in saved], 1)
+                if not np.isfinite(got).all():
+                    raise AssertionError(f"cli {name}: non-finite {f}")
+                diff[f] = float(np.abs(
+                    got - getattr(aux.pose, f).cpu().numpy()).max())
+            log(f"cli {name}: saved poses against track_trajectory on the "
+                f"same nets and init draws, max |diff| {diff}")
+            if max(diff.values()) > POSE_TOL:
+                raise AssertionError(f"cli {name}: the CLI's poses differ "
+                                     f"from the direct run by {diff}")
+
+            eval_s = {}
+            eval_argv = ["--no_iou", *common]
+            for label in ("no_iou", "iou"):
+                text, (rows, _), eval_s[label] = _printed(
+                    evaluate.main, eval_argv, device=dev)
+                with open(os.path.join(rot_dir, "results", "err.csv")) as fh:
+                    table = list(csv.reader(fh))
+                cols = set(table[0][1:])
+                want_cols = _eval_metrics(cfg.obj.num_parts,
+                                          label == "iou")
+                if (len(table) - 1 != CLI_TRAJECTORIES * (CLI_FRAMES - 1)
+                        or cols != want_cols or len(rows) != len(table) - 1):
+                    raise AssertionError(
+                        f"cli {name} evaluate ({label}): {len(table) - 1} "
+                        f"rows, columns {sorted(cols ^ want_cols)} differ")
+                log(f"cli {name} evaluate ({label}): {len(table) - 1} rows x "
+                    f"{len(cols)} metrics in {eval_s[label]:.3f} s; "
+                    + "  ".join(ln.strip() for ln in text.splitlines()))
+                eval_argv = common
+
+            by_shape = {}
+            for (n, npoint), clouds in calls.items():
+                for xyz in clouds:
+                    by_shape.setdefault((xyz.shape[0], n, npoint),
+                                        []).append(xyz)
+            for (b, n, npoint), clouds in sorted(by_shape.items()):
+                check_video(fps, kernels, (fps.route(b, n),), clouds,
+                            npoint, name, CLI_FRAMES - 1, CLI_VIDEO,
+                            path="cli")
+            out[name] = dict(
+                B=B, launches=launches, frames_per_s=total_fps,
+                ms_per_step=float(batches[0][3]) * 1e3 / (CLI_FRAMES - 1),
+                track_main_s=track_s, ckpt_load_s=load_s, build_s=build_s,
+                evaluate_s=eval_s["iou"], evaluate_no_iou_s=eval_s["no_iou"],
+                avg={k: float(v) for k, v in avg.items()},
+                twin_max_pose_diff=diff)
+            log(f"cli {name}: {total_fps} tracked frames/s as the CLI prints "
+                f"it, {out[name]['ms_per_step']:.2f} ms a step of B={B}; "
+                f"FPS launches a tracked frame "
+                f"{_frame_launches(launches, steps)}")
+    return out
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1123,6 +1322,8 @@ def main() -> int:
     lap("otf")
     init = phase_init_search(profile=args.profile, kernels=kernels)
     lap("init_search")
+    cli = phase_cli(kernels=kernels)
+    lap("cli")
 
     line = []
     for name, cases in kernels.items():
@@ -1134,7 +1335,9 @@ def main() -> int:
                    **{f"otf_{r}": v["launches"][name]
                       for r, v in otf["runs"].items()},
                    **{f"init_{r}": v["launches"][name]
-                      for r, v in init.items()}}
+                      for r, v in init.items()},
+                   **{f"cli_{r}": v["launches"][name]
+                      for r, v in cli.items()}}
         line.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
@@ -1150,6 +1353,7 @@ def main() -> int:
     log(json.dumps({"slice": sliced}))
     log(json.dumps({"otf": otf}))
     log(json.dumps({"init_search": init}))
+    log(json.dumps({"cli": cli}))
     log(json.dumps({"seconds": seconds}))
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

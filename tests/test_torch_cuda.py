@@ -82,6 +82,7 @@ _WIDE_THRESHOLDS = (8192, 12288)
     ("fps_cuda_batched", 3, 64, 64),       # every point
     ("fps_cuda_batched", 2, 700, 700),
     ("fps_cuda_wide", 1, 4096, 512),       # sa1 at B=1
+    ("fps_cuda_wide", 4, 4096, 512),       # sa1 of the track CLI at B=4
     ("fps_cuda_batched", 16, 4096, 512),   # sa1 at B=16
     ("fps_cuda_batched", 8, 8192, 64),     # the batched kernel's one-CTA bound
     ("fps_cuda_wide", 1, 1024, 128),
@@ -290,3 +291,69 @@ def test_bf16_coordnet_on_the_card_matches_its_cpu_copy(card):
         eps = 2.0 ** -8 * float(w32.abs().max())
         assert err > 0
         assert float((g - w).abs().max()) <= 2 * err + eps, k
+
+
+def test_track_sequences_on_the_card_matches_the_cpu(card, tmp_path):
+    """The track CLI's loop on the card against the same nets on the CPU:
+    a tiny bottle, two synthetic trajectories of 3 frames at B=2, saved
+    results and averages within 1e-3 (the card's float32 sums round
+    otherwise than the CPU's)."""
+    import contextlib
+    import copy
+    import io
+    import pickle
+
+    from captra_tpu_torch.cli import track
+    from captra_tpu_torch.config import schema
+    from captra_tpu_torch.models.coordnet import CoordNet
+    from captra_tpu_torch.models.rotnet import RotNet
+    from captra_tpu_torch.tracking.tracker import make_track_step
+    from torch_port_helpers import tiny_config
+
+    cfg = tiny_config(schema, num_points=128).replace(batch_size=2)
+    gen = torch.Generator().manual_seed(0)
+    cpu_nets = (CoordNet(cfg, device="cpu", generator=gen),
+                RotNet(cfg, device="cpu", generator=gen))
+    out = {}
+    for dev, nets in (("cpu", cpu_nets),
+                      (card, [copy.deepcopy(m).to(card) for m in cpu_nets])):
+        exp = str(tmp_path / str(dev))
+        run_cfg = cfg.replace(experiment_dir=exp)
+        step = make_track_step(run_cfg, *nets, device=dev)
+        with contextlib.redirect_stdout(io.StringIO()):
+            avgs = track.track_sequences(
+                run_cfg, step, track.synthetic_sequences(run_cfg, count=2,
+                                                         num_frames=3),
+                save=True, device=dev)
+        with open(f"{exp}/results/data/synthetic_0001.pkl", "rb") as f:
+            out[str(dev)] = (avgs, pickle.load(f))
+    (cpu_avg, cpu_res), (gpu_avg, gpu_res) = out["cpu"], out[str(card)]
+    for k in cpu_avg:
+        np.testing.assert_allclose(gpu_avg[k], cpu_avg[k], atol=1e-3)
+    for k, v in cpu_res["pred"]["poses"].items():
+        np.testing.assert_allclose(gpu_res["pred"]["poses"][k], v, atol=1e-3)
+    np.testing.assert_array_equal(gpu_res["gt"]["corners"],
+                                  cpu_res["gt"]["corners"])
+
+
+def test_grid_iou_on_the_card_equals_the_cpu(card):
+    """The grid IoU's arithmetic is separate float32 multiplies and adds, so
+    the card classifies every grid point as the CPU does."""
+    from captra_tpu_torch.pose import bbox
+    from captra_tpu_torch.pose.part_dof import Pose
+    from captra_tpu_torch.pose.rotations import quat_to_matrix
+
+    rng = np.random.RandomState(0)
+    q = torch.from_numpy(rng.randn(2, 4, 4).astype(np.float32))
+    rot = quat_to_matrix(q / q.norm(dim=-1, keepdim=True))
+    center = torch.from_numpy(rng.uniform(-0.05, 0.05, (2, 4, 3)))
+    half = torch.from_numpy(rng.uniform(0.05, 0.2, (2, 4, 3)))
+    corners = torch.stack([center - half, center + half], -2).float()
+    pose = Pose(rot, torch.from_numpy(rng.uniform(
+        -0.05, 0.05, (2, 4, 3, 1)).astype(np.float32)),
+        torch.ones(2, 4))
+    boxes = bbox.posed_bbox_from_part(pose, corners)
+    want = bbox.iou_3d(boxes[0], boxes[1])
+    got = bbox.iou_3d(boxes[0].to(card), boxes[1].to(card))
+    assert (want > 0).any()
+    assert torch.equal(got.cpu(), want)

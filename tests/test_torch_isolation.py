@@ -1,5 +1,5 @@
-"""The port stands alone: it imports neither JAX, flax nor `captra_tpu`, and
-its entry points refuse to run quietly on the CPU."""
+"""The port stands alone: it imports neither JAX, flax, optax, orbax nor
+`captra_tpu`, and its entry points refuse to run quietly on the CPU."""
 import dataclasses
 import os
 import re
@@ -10,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from captra_tpu_torch.cli import evaluate as evaluate_cli
+from captra_tpu_torch.cli import track as track_cli
 from captra_tpu_torch.config import get_config, schema
 from captra_tpu_torch.config.presets import NOCS_BOTTLE_OVERRIDES, nocs_bottle
+from captra_tpu_torch.eval.evaluator import evaluate_results_dir
 from captra_tpu_torch.models.coordnet import CoordNet
 from captra_tpu_torch.models.rotnet import RotNet
 from captra_tpu_torch.pose.part_dof import Pose
@@ -25,7 +28,8 @@ from tests.torch_port_helpers import tiny_config
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "captra_tpu_torch")
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(jax|flax|captra_tpu)(?:\.|\s|$)", re.M)
+    r"^\s*(?:import|from)\s+(jax|flax|optax|orbax|captra_tpu)(?:\.|\s|$)",
+    re.M)
 
 
 def _sources():
@@ -45,7 +49,8 @@ def test_import_pulls_in_no_jax():
         "                               'captra_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules\n"
-        "             if n.split('.')[0] in ('jax', 'flax', 'captra_tpu'))\n"
+        "             if n.split('.')[0] in ('jax', 'flax', 'optax', 'orbax',\n"
+        "                                    'captra_tpu'))\n"
         "print(len(sys.modules), bad)\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -66,7 +71,8 @@ def test_sources_import_no_jax():
 
 def test_forbidden_pattern_catches_imports():
     for line in ("import jax", "from jax import numpy", "import flax.linen",
-                 "from captra_tpu.ops import fps", "  import captra_tpu"):
+                 "from captra_tpu.ops import fps", "  import captra_tpu",
+                 "import optax", "from orbax import checkpoint as ocp"):
         assert _FORBIDDEN.search(line), line
     for line in ("import captra_tpu_torch", "from captra_tpu_torch import x",
                  "import jaxlib_free"):
@@ -86,6 +92,11 @@ def _entry_points(cfg):
         "search_init_orientation": lambda: search_init_orientation(
             None, np.zeros((1, 8, 3), np.float32), Pose.identity((1, 1)),
             cfg),
+        "cli.track.main": lambda: track_cli.main(["--synthetic_data"]),
+        "cli.evaluate.main": lambda: evaluate_cli.main([]),
+        "evaluate_results_dir": lambda: evaluate_results_dir(
+            "results", cfg.obj),
+        "build_step": lambda: track_cli.build_step(cfg, {}, {}),
     }
 
 
