@@ -1,7 +1,8 @@
 """Tracking entry point (counterpart of `captra_tpu/cli/track.py`).
 
     python -m captra_tpu_torch.cli.track --coord_exp/dir=<coord exp> \\
-        --experiment_dir=<rot exp> --synthetic_data [--save] [flags]
+        --experiment_dir=<rot exp> [--basepath=<dataset root>] \\
+        [--mode_name=<split>] [--synthetic_data] [--save] [flags]
 
 Loads a CoordNet experiment's and a RotNet experiment's checkpoints (the
 JAX package's pickle files, `training/checkpoint.py`), tracks each batch of
@@ -9,11 +10,20 @@ trajectories frame by frame on the card, prints each batch's time and
 errors and the averages, and with `--save` writes one result pickle a
 trajectory for `captra_tpu_torch.cli.evaluate` (or the JAX package's).
 
+The trajectories are the dataset on disk under the object config's
+basepath (`data/factory.py`: NOCS, SAPIEN renders, BMVC, captured real),
+split `--mode_name` or else `default_track_mode` (NOCS `real_test`, SAPIEN
+`test_seq` where `render_seq/` exists, else `test`): whole tracks for
+NOCS, BMVC and `real_test`, `obj/num_frames` chunks otherwise, batched
+`--batch_size` at a time; or, with `--synthetic_data`, 4 generated
+trajectories of 20 frames.
+
 Where the port differs from the JAX CLI:
 
 - the frame-0 noise (`init_frame/gt` false) and the OTF crop's shifts come
   from one `torch.Generator` seeded by `seed`, drawn in sequence order;
-  the JAX `jax.random.split` stream cannot be reproduced;
+  the JAX `jax.random.split` stream cannot be reproduced (the readers'
+  own draws, from their numpy seeds, are the JAX readers');
 - no length buckets: the JAX CLI pads each trajectory to a bucket length
   to share one XLA compile; an eager loop compiles nothing, so the port
   tracks exactly T frames;
@@ -21,10 +31,9 @@ Where the port differs from the JAX CLI:
   yields them as [1, B, P, 2, 3], the real-data layout), where the JAX CLI
   indexes the synthetic layout [B, P, 2, 3] as if it were that one.
 
-Not ported yet, each raising `NotImplementedError`: the real-data branch
-(no `--synthetic_data`), `--num_devices` > 1, orbax checkpoint
-directories.  `main(argv, device="cpu")` runs on the CPU; without it the
-card is required.
+Not ported yet, each raising `NotImplementedError`: `--num_devices` > 1,
+orbax checkpoint directories.  `main(argv, device="cpu")` runs on the CPU;
+without it the card is required.
 """
 from __future__ import annotations
 
@@ -104,14 +113,18 @@ def track_sequences(cfg, step, sequences, save: bool = False,
     leading [T, B, ...]: the B trajectories of a batch track together.
     A batch carries points (and labels), or with `track_cfg/nocs_otf` depth
     and mask (and the crop's shift [T, B], else drawn here; and the NOCS-2D
-    detections); "pose" (a `Pose` [T, B, P]) and "corners" [T or 1, B, P,
-    2, 3] when it has GT.  Returns {metric: [per-trajectory average]}."""
+    detections; a batch without depth then raises); "pose" (a `Pose` [T,
+    B, P]) and "corners" [T or 1, B, P, 2, 3] when it has GT.  Returns {metric: [per-trajectory average]}."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     all_avgs, total_frames, total_time = {}, 0, 0.0
     warmed: set[int] = set()
     for name, batch in sequences:
         names = (name,) if isinstance(name, str) else tuple(name)
+        if cfg.track.nocs_otf and "depth" not in batch:
+            raise ValueError(f"{'|'.join(names)}: track_cfg/nocs_otf crops "
+                             "each frame from its depth image, and this "
+                             "batch has none")
         gt = batch.get("pose")
         if gt is not None:
             gt = gt.map(lambda x: torch.as_tensor(np.asarray(x)))
@@ -130,7 +143,7 @@ def track_sequences(cfg, step, sequences, save: bool = False,
                 init_pose = search_init_orientation(coord_fn, points0,
                                                     init_pose, cfg,
                                                     device=device)
-        if cfg.track.nocs_otf and "depth" in batch:
+        if cfg.track.nocs_otf:
             T, B = batch["depth"].shape[:2]
             H, W = batch["depth"].shape[-2:]
             shift = batch.get("shift")
@@ -216,6 +229,48 @@ def synthetic_sequences(cfg, count: int = 4, num_frames: int = 20):
         yield (names[0] if len(names) == 1 else names), batch
 
 
+def dataset_sequences(cfg, mode: str | None = None):
+    """The trajectory batches of split `mode` (else `default_track_mode`)
+    of the dataset under `cfg.obj.basepath`: whole tracks for NOCS, BMVC
+    and `real_test`, `cfg.obj.num_frames` chunks otherwise (reference
+    SequenceData, dataset.py:138-151), `cfg.batch_size` a batch."""
+    from captra_tpu_torch.data.factory import default_track_mode, make_dataset
+    from captra_tpu_torch.data.loader import sequence_batches
+    mode = mode or default_track_mode(cfg)
+    chunked = not (cfg.obj.nocs_data or "bmvc" in mode
+                   or mode == "real_test")
+    dataset = make_dataset(cfg, mode)
+    num_frames = cfg.obj.num_frames if chunked else None
+    batches = sequence_batches(dataset, num_frames,
+                               batch_size=cfg.batch_size)
+    if cfg.track.nocs_otf:
+        return _with_depth(dataset, batches, num_frames)
+    return batches
+
+
+def _with_depth(dataset, batches, num_frames):
+    """`batches`, raising `FileNotFoundError` at the first one without
+    depth images (`track_cfg/nocs_otf` crops every frame from its own),
+    naming the depth path of the first frame that read none."""
+    tracks = dataset.track_index()
+    for name, batch in batches:
+        if "depth" not in batch:
+            first = name if isinstance(name, str) else name[0]
+            track, chunk = first.rsplit("/", 1)
+            idxs = tracks[track]
+            if num_frames is not None:
+                idxs = idxs[int(chunk) * num_frames:][:num_frames]
+            meta = next(m for m in (dataset[int(i)]["meta"] for i in idxs)
+                        if "pre_fetched" not in m)
+            raise FileNotFoundError(
+                f"{first}: track_cfg/nocs_otf needs each frame's depth "
+                f"image, and frame {meta['path']} has none: depth path "
+                f"{meta.get('depth_path') or '(none recorded)'!r} is no "
+                "file (a NOCS frame records its depth image's absolute "
+                "path when it is preprocessed)")
+        yield name, batch
+
+
 def parse(argv=None):
     """(args, cfg) of a track command line."""
     parser = add_args(argparse.ArgumentParser("captra-tpu-torch track"))
@@ -224,10 +279,6 @@ def parse(argv=None):
         raise NotImplementedError(
             f"--num_devices={args.num_devices}: the port tracks on one "
             "device")
-    if not args.synthetic_data:
-        raise NotImplementedError(
-            "tracking a dataset on disk (no --synthetic_data): the port's "
-            "host readers are not ported yet")
     return args, get_config(args.config, config_overrides(args),
                             args.config_dir)
 
@@ -237,9 +288,10 @@ def main(argv=None, device=None):
     args, cfg = parse(argv)
     cv, rv = load_variables(cfg, args)
     step = build_step(cfg, cv, rv, device=device)
-    return track_sequences(cfg, step, synthetic_sequences(cfg),
-                           save=args.save, no_eval=args.no_eval,
-                           device=device)
+    sequences = (synthetic_sequences(cfg) if args.synthetic_data
+                 else dataset_sequences(cfg, args.mode_name))
+    return track_sequences(cfg, step, sequences, save=args.save,
+                           no_eval=args.no_eval, device=device)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Fixed-shape frame preprocessing on tensors: depth backprojection, the
-ball crop with radius growth and a bucketed subsample + FPS, and the in-step
-NOCS-2D detection-mask selection (counterpart of
-`captra_tpu/data/preprocess.py`).
+ball crop with radius growth and a random subsample + FPS, the OTF frame of
+the dataset path, and the in-step NOCS-2D detection-mask selection
+(counterpart of `captra_tpu/data/preprocess.py`).
 
 Everything here runs on the step's device with no host synchronisation, so
 the OTF tracking step (`tracking/tracker.py`, `nocs_otf`) crops inside the
@@ -9,10 +9,12 @@ step from the carried pose: the depth image is the only host-to-device
 transfer of a frame.  The functions are batched over a leading cloud axis B
 where the JAX functions are single-cloud (the JAX tracker vmaps them).
 
-The one interface difference: the crop's random input, one cyclic shift per
-cloud, is an explicit argument `shift` [B] in [0, M).  The JAX crop draws it
-as `jax.random.randint(key, (), 0, M)` (preprocess.py:190), which torch
-cannot reproduce; the parity tests feed the port the JAX draw.
+The one interface difference: the crops' random input is an explicit
+argument: one cyclic shift per cloud `shift` [B] in [0, M) for the bucketed
+subsample, uniform scores [M] for the sorted one.  The JAX crops draw them
+as `jax.random.randint(key, (), 0, M)` and `jax.random.uniform(key, (M,))`
+(preprocess.py:110-115, 190), which torch cannot reproduce; the parity
+tests feed the port the JAX draws.
 
 The radius-growth factors 1.1^k and 1.2^k are float32 literal tables equal
 to what `1.1 ** jnp.arange(10)` and `1.2 ** jnp.arange(6)` give in JAX, so
@@ -61,6 +63,20 @@ def _grid(H: int, W: int, device):
     return rows.expand(H, W), cols.expand(H, W)
 
 
+def intrinsics_inverse(K: torch.Tensor) -> torch.Tensor:
+    """Inverse of a camera matrix [[fx, s, cx], [0, fy, cy], [0, 0, 1]] by
+    back-substitution with the reciprocals of fx and fy: the float32 values
+    `jnp.linalg.inv` gives on zero-skew intrinsics, on any device (a
+    library inverse differs by an ulp, and by device)."""
+    r0, r1 = 1.0 / K[0, 0], 1.0 / K[1, 1]
+    inv12 = -K[1, 2] * r1
+    inv02 = -(K[0, 2] + K[0, 1] * inv12) * r0
+    zero, one = torch.zeros_like(r0), torch.ones_like(r0)
+    return torch.stack([torch.stack([r0, -K[0, 1] * r0 * r1, inv02]),
+                        torch.stack([zero, r1, inv12]),
+                        torch.stack([zero, zero, one])])
+
+
 def backproject_depth(depth: torch.Tensor, intrinsics, mask=None,
                       scale: float = 0.001):
     """depth [H, W] (raw integer units) -> (pts [H*W, 3] metric, valid
@@ -72,7 +88,7 @@ def backproject_depth(depth: torch.Tensor, intrinsics, mask=None,
     valid = depth > 0
     if mask is not None:
         valid = valid & torch.as_tensor(mask, device=depth.device).bool()
-    K_inv = torch.linalg.inv(K)
+    K_inv = intrinsics_inverse(K)
     uv1 = torch.stack([cols.float(), (H - rows).float(),
                        torch.ones((H, W), device=depth.device)], dim=-1)
     xyz = uv1 @ K_inv.T
@@ -111,23 +127,13 @@ def _first_true(x: torch.Tensor, dim: int = -1):
     return first, first < n
 
 
-def crop_working_set(shift: torch.Tensor, pts3: torch.Tensor,
-                     valid: torch.Tensor, center: torch.Tensor,
-                     radius: torch.Tensor, num_points: int,
-                     work_factor: int = 5, max_grow: int = 10):
-    """The crop's FPS working set (preprocess.py:176-199): shift [B] in
-    [0, M), pts3 [B, 3, M], valid [B, M], center [B, 3], radius [B] ->
-    (take [B, W] int64 indices into M, sub3 [B, 3, W]).
-
-    Radius growth: the first of max(radius, 0.05) * 1.1^k with at least 10
-    valid points in the ball, else the largest; an empty ball takes every
-    valid point.  The W = min(work_factor * num_points, M) points are the
-    first in-ball point of each of W buckets of G = ceil(M/W) after a
-    cyclic shift by `shift`; an empty bucket takes the first in-ball point
-    overall, so a small ball fills the set with duplicates."""
+def _in_ball(pts3: torch.Tensor, valid: torch.Tensor, center: torch.Tensor,
+             radius: torch.Tensor, max_grow: int) -> torch.Tensor:
+    """[B, M] the crop's ball (preprocess.py:93-108): the first of
+    max(radius, 0.05) * 1.1^k with at least 10 valid points within, else
+    the largest; an empty ball takes every valid point."""
     if max_grow > len(CROP_GROWTH):
         raise ValueError(f"max_grow {max_grow} > {len(CROP_GROWTH)}")
-    B, _, M = pts3.shape
     dev = pts3.device
     dx = pts3[:, 0] - center[:, 0, None]
     dy = pts3[:, 1] - center[:, 1, None]
@@ -140,8 +146,24 @@ def crop_working_set(shift: torch.Tensor, pts3: torch.Tensor,
     k, any_k = _first_true(counts >= 10)
     k = torch.where(any_k, k, max_grow - 1)
     in_ball = dist <= torch.gather(radii, 1, k[:, None])
-    in_ball = torch.where(in_ball.any(-1, keepdim=True), in_ball, valid)
+    return torch.where(in_ball.any(-1, keepdim=True), in_ball, valid)
 
+
+def crop_working_set(shift: torch.Tensor, pts3: torch.Tensor,
+                     valid: torch.Tensor, center: torch.Tensor,
+                     radius: torch.Tensor, num_points: int,
+                     work_factor: int = 5, max_grow: int = 10):
+    """The crop's FPS working set (preprocess.py:176-199): shift [B] in
+    [0, M), pts3 [B, 3, M], valid [B, M], center [B, 3], radius [B] ->
+    (take [B, W] int64 indices into M, sub3 [B, 3, W]).
+
+    The ball of `_in_ball`; the W = min(work_factor * num_points, M) points
+    are the first in-ball point of each of W buckets of G = ceil(M/W) after
+    a cyclic shift by `shift`; an empty bucket takes the first in-ball
+    point overall, so a small ball fills the set with duplicates."""
+    B, _, M = pts3.shape
+    dev = pts3.device
+    in_ball = _in_ball(pts3, valid, center, radius, max_grow)
     W = min(work_factor * num_points, M)
     G = -(-M // W)
     shift = shift.to(device=dev, dtype=torch.int64)
@@ -185,6 +207,70 @@ def crop_ball_batch_planes(shift: torch.Tensor, pts3: torch.Tensor,
     B = pts3.shape[0]
     points3 = torch.gather(pts3, 2, final[:, None].expand(B, 3, num_points))
     return points3, final
+
+
+def crop_ball(draw: torch.Tensor, pts: torch.Tensor, valid: torch.Tensor,
+              center: torch.Tensor, radius: torch.Tensor, num_points: int,
+              work_factor: int = 5, max_grow: int = 10,
+              method: str = "sort"):
+    """Ball crop + FPS of one cloud in rows layout (preprocess.py:66-129):
+    pts [M, 3], valid [M] bool, center [3], radius [] -> (points
+    [num_points, 3], idx [num_points] int64 into pts).
+
+    The ball of `_in_ball`, then a working set of W = min(work_factor *
+    num_points, M) points, FPS'd down to num_points ([1, W] through
+    `pointops`: the CUDA kernels on the card).  `method` picks the working
+    set and `draw` is its random input:
+      "sort"   (the JAX default on every backend but the TPU, so the
+               default here): draw = uniform scores [M]; the in-ball points
+               in increasing score order (a stable argsort), wrapped to W;
+      "bucket" (the JAX default on the TPU): draw = the cyclic shift [] in
+               [0, M); the first in-ball point of each of W buckets, as
+               `crop_working_set`.
+    Both wrap-fill to W, so a small ball gives FPS duplicates."""
+    M = pts.shape[0]
+    W = min(work_factor * num_points, M)
+    pts3, valid, center = pts.T[None], valid[None], center[None]
+    radius = radius.reshape(1)
+    if method == "bucket":
+        take = crop_working_set(draw.reshape(1), pts3, valid, center, radius,
+                                num_points, work_factor, max_grow)[0][0]
+    elif method == "sort":
+        in_ball = _in_ball(pts3, valid, center, radius, max_grow)[0]
+        count = torch.clamp_min(in_ball.sum(), 1)
+        scores = torch.where(in_ball, draw.to(pts.device), torch.inf)
+        order = torch.argsort(scores, stable=True)
+        take = order[torch.arange(W, device=pts.device) % count]
+    else:
+        raise ValueError(f"unknown crop method {method!r} (sort|bucket)")
+    fps_idx = pointops.farthest_point_sample_indices(
+        pts[take][None].contiguous(), num_points)[0]
+    final = take[fps_idx.long()]
+    return pts[final], final
+
+
+def otf_frame_from_depth(draw: torch.Tensor, depth: torch.Tensor,
+                         obj_mask: torch.Tensor, intrinsics,
+                         center: torch.Tensor, radius: torch.Tensor,
+                         gt_pose, num_points: int, method: str = "sort"):
+    """One OTF frame of the dataset path (preprocess.py:295-316): depth
+    [H, W] + instance mask [H, W] + tracked center [3] and radius [] ->
+    {points [num_points, 3], labels, nocs}: the rows backprojection, then
+    `crop_ball` (`draw` and `method` as there).
+
+    labels follow the NOCS convention, 0 = object, 1 = background; nocs is
+    the GT pose's canonical frame on the object points, 0 elsewhere.
+    gt_pose: a single-part `Pose` (rotation [3, 3], translation [3, 1],
+    scale [])."""
+    pts, valid = backproject_depth(depth, intrinsics)
+    points, idx = crop_ball(draw, pts, valid, center, radius, num_points,
+                            method=method)
+    is_obj = obj_mask.reshape(-1).to(points.device)[idx].to(torch.int32)
+    labels = 1 - is_obj
+    canon = ((points - gt_pose.translation[..., 0]) /
+             gt_pose.scale) @ gt_pose.rotation
+    nocs = torch.where((labels == 0)[:, None], canon, 0.0)
+    return {"points": points, "labels": labels, "nocs": nocs}
 
 
 def projected_bbox_2d(center: torch.Tensor, radius: torch.Tensor,

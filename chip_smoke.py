@@ -74,7 +74,29 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 kernel held against the plain FPS on them.  Frames/s as
                 the CLI prints it, ms a step, checkpoint load and evaluate
                 seconds, the AVG metrics.
-  7. summary -- JSON lines of the paths and of the kernels, then, as the
+  7. data    -- the track CLI on datasets on disk, written from the seed
+                in a temporary directory with the script's own writers (a
+                PNG encoder of its own: no OpenCV): the SAPIEN laptop's
+                `test_seq` split (two test instances, one track each of
+                obj/num_frames = 100 frames of 480x640 OpenGL depth and
+                seg, GT and model-info pickles; B=2), and a NOCS bottle
+                `real_test` scene of 30 frames (16-bit depth and mask
+                PNGs, meta.txt, the data/*.npz frames, model corners) on
+                the OTF crop (-> fps_cuda_wide's cluster at [1,20480] ->
+                4096) with the GT masks and with NOCS-2D detections; each
+                followed by `cli.evaluate.main` with IoU.  Gates as the
+                cli phase's: FPS launches a tracked frame as `route`
+                predicts, a result pickle a trajectory, poses finite and
+                within 1e-4 of `track_trajectory` on the same nets, batch
+                and draws, err.csv with a row a tracked frame and every
+                metric, each kernel equal to the plain FPS on the run's
+                recorded inputs (the plain FPS once on all of them
+                stacked).  Then the host core's FPS of a reader's frame and
+                `otf_frame_from_depth` on one frame of the NOCS scene
+                against the plain FPS.  Reader seconds a frame cold (the
+                CLI's reads, SAPIEN writing its cache) and warm, ms a step
+                and frames/s as the CLI prints them.
+  8. summary -- JSON lines of the paths and of the kernels, then, as the
                 last line, {"ok": true, "device": {...}}.
 
 --profile DIR adds a torch.profiler window over a few tracked frames to each
@@ -456,14 +478,15 @@ def check_video(fps, results, wrappers, clouds, npoint, run, frames,
     """Hold each wrapper against the plain FPS on every input `clouds` that
     one FPS call of a tracked video of `frames` frames was given, and time
     it over the whole video; the case's ms, plain ms, bound and sweeps are
-    per frame."""
+    per frame.  The plain FPS runs once, on all the inputs stacked."""
     F = frames
     calls = len(clouds)
     B, N, _ = clouds[0].shape
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    wants = [fps.fps_plain(xyz, npoint) for xyz in clouds]
+    wants = fps.fps_plain(torch.cat(clouds), npoint).split(
+        [len(xyz) for xyz in clouds])
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end) / F
@@ -489,7 +512,9 @@ def check_video(fps, results, wrappers, clouds, npoint, run, frames,
                      warmup=1, launches=calls) / F
         results[kernel].append(dict(
             B=B, N=N, npoint=npoint, where=where, max_abs_err=0.0,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms / F,
+            ms=ms, plain_ms=plain_ms,
+            plain="stacked: one call on the video's inputs",
+            bound_ms=bound_ms / F,
             bound_by=bound_by, sweeps=sweeps / F, frames=F, calls=calls,
             us_per_pick=ms * 1e3 * F / calls / (npoint - 1)))
         if kernel == "fps_cuda_blocked" and B == 1:
@@ -499,8 +524,8 @@ def check_video(fps, results, wrappers, clouds, npoint, run, frames,
         log(f"kernel {kernel} [{B},{N}]->{npoint} ({where}, {path} {run}): "
             f"equal on all {calls} calls; {ms:.4f} ms a frame "
             f"({ms * 1e3 * F / calls / (npoint - 1):.3f} us a pick), plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms / F:.5f} ms ({bound_by}, "
-            f"{sweeps / F:.0f} sweeps a frame the data needs)")
+            f"(stacked) {plain_ms:.3f} ms, bound {bound_ms / F:.5f} ms "
+            f"({bound_by}, {sweeps / F:.0f} sweeps a frame the data needs)")
 
 
 @contextlib.contextmanager
@@ -1150,22 +1175,69 @@ def _eval_metrics(num_parts: int, iou: bool) -> set:
     return cols
 
 
+def write_checkpoints(cfg, dev: torch.device, coord_dir: str,
+                      rot_dir: str):
+    """The seeded nets of cfg, written as a coord and a rot experiment's
+    checkpoints (the JAX package's pickle layout); returns the nets."""
+    from captra_tpu_torch.training import checkpoint
+    from captra_tpu_torch.training.convert import flax_variables
+    nets = seeded_nets(lambda cfg=cfg: cfg, dev)(cfg)
+    for exp, net in ((coord_dir, nets[0]), (rot_dir, nets[1])):
+        checkpoint.save_checkpoint(os.path.join(exp, "ckpt"), 0,
+                                   flax_variables(net))
+    return nets
+
+
+def check_saved_poses(label: str, saved: list, aux) -> dict:
+    """The CLI's saved predicted poses (one result a trajectory, in batch
+    order) against its twin's `aux`: finite and within POSE_TOL."""
+    diff = {}
+    for f in ("rotation", "translation", "scale"):
+        got = np.stack([r["pred"]["poses"][f] for r in saved], 1)
+        if not np.isfinite(got).all():
+            raise AssertionError(f"{label}: non-finite {f}")
+        diff[f] = float(np.abs(
+            got - getattr(aux.pose, f).cpu().numpy()).max())
+    log(f"{label}: saved poses against track_trajectory on the same nets, "
+        f"batch and draws, max |diff| {diff}")
+    if max(diff.values()) > POSE_TOL:
+        raise AssertionError(f"{label}: the CLI's poses differ from the "
+                             f"direct run by {diff}")
+    return diff
+
+
+def check_evaluate(label: str, argv: list, dev: torch.device, rot_dir: str,
+                   rows: int, num_parts: int, iou: bool) -> float:
+    """`cli.evaluate.main(argv)`: err.csv with `rows` rows and every metric
+    of `_eval_metrics`; returns its seconds."""
+    import csv
+    from captra_tpu_torch.cli import evaluate
+    text, (got, _), seconds = _printed(evaluate.main, argv, device=dev)
+    with open(os.path.join(rot_dir, "results", "err.csv")) as fh:
+        table = list(csv.reader(fh))
+    cols = set(table[0][1:])
+    want = _eval_metrics(num_parts, iou)
+    if len(table) - 1 != rows or cols != want or len(got) != rows:
+        raise AssertionError(f"{label}: {len(table) - 1} rows, columns "
+                             f"{sorted(cols ^ want)} differ")
+    log(f"{label}: {rows} rows x {len(cols)} metrics in {seconds:.3f} s; "
+        + "  ".join(ln.strip() for ln in text.splitlines()))
+    return seconds
+
+
 def phase_cli(kernels: dict) -> dict:
     """The track and evaluate CLIs on the card for each run of CLI_RUNS,
     from checkpoints written in a temporary directory, with the FPS kernels
     held on the run's recorded inputs (into `kernels`); returns per run its
     launches, frames/s, ms a step, load and evaluate seconds and AVG
     metrics."""
-    import csv
     import pickle
 
-    from captra_tpu_torch.cli import evaluate, track
+    from captra_tpu_torch.cli import track
     from captra_tpu_torch.ops import fps
     from captra_tpu_torch.tracking.tracker import (
         init_pose_from_gt, make_track_step, track_trajectory,
     )
-    from captra_tpu_torch.training import checkpoint
-    from captra_tpu_torch.training.convert import flax_variables
 
     dev = torch.device("cuda")
     out = {}
@@ -1177,10 +1249,7 @@ def phase_cli(kernels: dict) -> dict:
                       coord_dir, *flags]
             argv = ["--synthetic_data", "--save", *common]
             args, cfg = track.parse(argv)
-            nets = seeded_nets(lambda cfg=cfg: cfg, dev)(cfg)
-            for exp, net in ((coord_dir, nets[0]), (rot_dir, nets[1])):
-                checkpoint.save_checkpoint(os.path.join(exp, "ckpt"), 0,
-                                           flax_variables(net))
+            nets = write_checkpoints(cfg, dev, coord_dir, rot_dir)
             t0 = time.perf_counter()
             cv, rv = track.load_variables(cfg, args)
             load_s = time.perf_counter() - t0
@@ -1236,38 +1305,14 @@ def phase_cli(kernels: dict) -> dict:
                 _, aux = track_trajectory(step, init,
                                           {"points": batch["points"]},
                                           device=dev)
-            diff = {}
-            for f in ("rotation", "translation", "scale"):
-                got = np.stack([r["pred"]["poses"][f] for r in saved], 1)
-                if not np.isfinite(got).all():
-                    raise AssertionError(f"cli {name}: non-finite {f}")
-                diff[f] = float(np.abs(
-                    got - getattr(aux.pose, f).cpu().numpy()).max())
-            log(f"cli {name}: saved poses against track_trajectory on the "
-                f"same nets and init draws, max |diff| {diff}")
-            if max(diff.values()) > POSE_TOL:
-                raise AssertionError(f"cli {name}: the CLI's poses differ "
-                                     f"from the direct run by {diff}")
-
-            eval_s = {}
-            eval_argv = ["--no_iou", *common]
-            for label in ("no_iou", "iou"):
-                text, (rows, _), eval_s[label] = _printed(
-                    evaluate.main, eval_argv, device=dev)
-                with open(os.path.join(rot_dir, "results", "err.csv")) as fh:
-                    table = list(csv.reader(fh))
-                cols = set(table[0][1:])
-                want_cols = _eval_metrics(cfg.obj.num_parts,
-                                          label == "iou")
-                if (len(table) - 1 != CLI_TRAJECTORIES * (CLI_FRAMES - 1)
-                        or cols != want_cols or len(rows) != len(table) - 1):
-                    raise AssertionError(
-                        f"cli {name} evaluate ({label}): {len(table) - 1} "
-                        f"rows, columns {sorted(cols ^ want_cols)} differ")
-                log(f"cli {name} evaluate ({label}): {len(table) - 1} rows x "
-                    f"{len(cols)} metrics in {eval_s[label]:.3f} s; "
-                    + "  ".join(ln.strip() for ln in text.splitlines()))
-                eval_argv = common
+            diff = check_saved_poses(f"cli {name}", saved, aux)
+            eval_s = {
+                label: check_evaluate(
+                    f"cli {name} evaluate ({label})",
+                    (["--no_iou"] if label == "no_iou" else []) + common,
+                    dev, rot_dir, CLI_TRAJECTORIES * (CLI_FRAMES - 1),
+                    cfg.obj.num_parts, label == "iou")
+                for label in ("no_iou", "iou")}
 
             by_shape = {}
             for (n, npoint), clouds in calls.items():
@@ -1289,6 +1334,426 @@ def phase_cli(kernels: dict) -> dict:
                 f"it, {out[name]['ms_per_step']:.2f} ms a step of B={B}; "
                 f"FPS launches a tracked frame "
                 f"{_frame_launches(launches, steps)}")
+    return out
+
+
+# the data phase: datasets on disk through the track CLI (flags on top of
+# the CLI's defaults; "{root}" is the dataset root).  sapien_laptop: the
+# SAPIEN laptop's `test_seq` split, DATA_SAPIEN_INSTANCES (two of
+# obj_info_sapien.yml's test_list), one track each of obj/num_frames
+# frames, tracked as one chunk each at B=2; the NOCS bottle's `real_test`
+# scene of DATA_NOCS_FRAMES frames on the OTF crop, with the GT instance
+# masks and with NOCS-2D detections.
+DATA_SAPIEN_INSTANCES = ("10101", "10270")
+DATA_NOCS_FRAMES = 30
+DATA_IMAGE_HW = (480, 640)
+DATA_NOCS_INSTANCE = "bottle_red_stanford_norm"
+DATA_NOCS_OBJ = ["--obj_config", "obj_info_nocs.yml", "--obj_category", "1",
+                 "--mode_name", "real_test", "--nocs_otf", "true"]
+DATA_RUNS = (("sapien_laptop", ["--mode_name", "test_seq"]),
+             ("nocs_bottle_otf", DATA_NOCS_OBJ),
+             ("nocs_bottle_nocs2d", [*DATA_NOCS_OBJ,
+                                     "--track_cfg/nocs2d_label", "true",
+                                     "--track_cfg/nocs2d_path",
+                                     "{root}/nocs2d"]))
+DATA_VIDEO = "the data phase's recorded FPS inputs, ms a frame"
+SAPIEN_NEAR, SAPIEN_FAR = 0.1, 100.0
+SAPIEN_K = np.array([[600.0, 0.0, 320.0], [0.0, 600.0, 240.0],
+                     [0.0, 0.0, 1.0]])
+
+
+def png_filter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Scanlines uint8 [H, S] -> the PNG image data [H, 1 + S], row r
+    filtered with filter r % 5 (None, Sub, Up, Average, Paeth): the mix a
+    libpng writer's adaptive filtering brings a reader."""
+    x = rows.astype(np.int16)
+    a, b, c = (np.zeros_like(x) for _ in range(3))
+    a[:, bpp:] = x[:, :-bpp]
+    b[1:] = x[:-1]
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    kinds = np.arange(len(x)) % 5
+    pred = np.choose(kinds[:, None], [np.zeros_like(x), a, b, (a + b) >> 1,
+                                      paeth])
+    return np.concatenate([kinds[:, None], (x - pred) & 0xFF],
+                          axis=1).astype(np.uint8)
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """A PNG of uint16 grey [H, W] or uint8 RGB [H, W, 3], its rows filtered
+    in turn with each of the five filters (`png_filter`)."""
+    import struct
+    import zlib
+    H, W = img.shape[:2]
+    if img.dtype == np.uint16:
+        color, bits, bpp = 0, 16, 2
+        rows = img.astype(">u2").view(np.uint8).reshape(H, -1)
+    else:
+        color, bits, bpp, rows = 2, 8, 3, img.reshape(H, W * 3)
+    raw = png_filter(rows, bpp).tobytes()
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data + struct.pack(
+            ">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", W, H, bits, color, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def _quat(axis, angle: float) -> list:
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    return [np.cos(angle / 2), *(np.sin(angle / 2) * axis)]
+
+
+def write_sapien(root: str, frames: int, rng) -> None:
+    """SAPIEN `render_seq` tracks of the laptop's DATA_SAPIEN_INSTANCES:
+    per frame an OpenGL depth buffer and seg image (the base and the lid,
+    sloped patches at about 1 m with +-2 mm of noise, sliding a pixel a
+    frame), the GT camera and link poses, and each instance's model info;
+    DATA_IMAGE_HW images."""
+    import pickle
+    H, W = DATA_IMAGE_HW
+    os.makedirs(os.path.join(root, "model_info", "laptop"))
+    for k, instance in enumerate(DATA_SAPIEN_INSTANCES):
+        base = os.path.join(root, "render_seq", "laptop", instance, "0000")
+        for sub in ("cloud", "gt"):
+            os.makedirs(os.path.join(base, sub))
+        rows = np.arange(H, dtype=np.float64)[:, None]
+        for f in range(frames):
+            z = np.full((H, W), np.inf)
+            seg = np.full((H, W), 2, np.uint8)        # 2: nothing rendered
+            c0 = W // 4 + k * W // 32 + f
+            parts = ((slice(int(H * 0.5), int(H * 0.75)), 0.95 + 0.0004 *
+                      (rows - H * 0.5)),
+                     (slice(int(H * 0.2), int(H * 0.5)), 1.05 - 0.0002 *
+                      (rows - H * 0.2)))
+            for p, (rs, zrow) in enumerate(parts):
+                cs = slice(c0, c0 + int(W * 0.4))
+                z[rs, cs] = np.broadcast_to(zrow, (H, W))[rs, cs]
+                seg[rs, cs] = p
+            z = z + rng.uniform(-0.002, 0.002, (H, W))
+            depth = np.where(np.isfinite(z), (SAPIEN_NEAR * SAPIEN_FAR / z
+                                              - SAPIEN_FAR)
+                             / (SAPIEN_NEAR - SAPIEN_FAR), 1.0)
+            np.savez_compressed(
+                os.path.join(base, "cloud", f"{f}.npz"),
+                all_dict={"depth": depth.astype(np.float32), "seg": seg,
+                          "camera_matrix": SAPIEN_K, "near": SAPIEN_NEAR,
+                          "far": SAPIEN_FAR})
+            lid = 0.6 + 0.004 * f
+            gt = {"camera_pose": ([0.0, 0.0, 0.0], _quat([1, 0, 0], 0.0)),
+                  "link_pose": {0: ([1.0, 0.002 * f, 0.0],
+                                    _quat([0, 0, 1], 0.1)),
+                                1: ([1.0, 0.002 * f, 0.1],
+                                    _quat([0, 1, 0], lid))}}
+            with open(os.path.join(base, "gt", f"{f}.pkl"), "wb") as fh:
+                pickle.dump(gt, fh)
+        corner = [np.array([-0.18, -0.12, -0.01]), np.array([0.18, 0.12,
+                                                             0.01])]
+        info = {"num_parts": 2, "tree": [-1, 0],
+                "corner": [corner, corner], "factor": [2.3, 2.3],
+                "obj2link": {0: np.eye(4), 1: np.eye(4)}}
+        with open(os.path.join(root, "model_info", "laptop",
+                               f"{instance}.pkl"), "wb") as fh:
+            pickle.dump(info, fh)
+
+
+def write_nocs(root: str, frames: int, rng) -> None:
+    """One NOCS `real_test` bottle scene: per frame a 16-bit depth PNG
+    (background at 1.5 m, an object blob of 3/16 of the height (90 pixels)
+    at 1.0 m moving a pixel a frame, +-3 mm of noise), the mask PNG (the
+    instance number 7 in red), meta.txt, the preprocessed `data/*.npz`
+    frame (the blob's points, the GT pose at their centroid), and a
+    NOCS-2D detection pickle (the blob and a detection of another class);
+    the instance's model corners; DATA_IMAGE_HW images."""
+    import pickle
+    from captra_tpu_torch.data.preprocess import (
+        NOCS_REAL_INTRINSICS, backproject_depth,
+    )
+    H, W = DATA_IMAGE_HW
+    raw = os.path.join(root, "nocs_full", "real_test", "scene_1")
+    data = os.path.join(root, "render", "real_test", "1", DATA_NOCS_INSTANCE,
+                        "scene_1", "data")
+    for d in (raw, data, os.path.join(root, "nocs2d"),
+              os.path.join(root, "model_corners")):
+        os.makedirs(d, exist_ok=True)
+    np.save(os.path.join(root, "model_corners", f"{DATA_NOCS_INSTANCE}.npy"),
+            np.array([[-0.05, -0.12, -0.05], [0.05, 0.12, 0.05]]))
+    oy, ox, side = int(H * 0.35), int(W * 0.4), H * 3 // 16
+    for f in range(frames):
+        mask = np.zeros((H, W), bool)
+        mask[oy + f:oy + f + side, ox + f:ox + f + side] = True
+        depth = np.where(mask, 1000, 1500) + rng.randint(-3, 4, (H, W))
+        depth = depth.astype(np.uint16)
+        depth_path = os.path.join(raw, f"{f:04d}_depth.png")
+        with open(depth_path, "wb") as fh:
+            fh.write(png_bytes(depth))
+        rgb = np.zeros((H, W, 3), np.uint8)
+        rgb[mask, 0] = 7
+        with open(os.path.join(raw, f"{f:04d}_mask.png"), "wb") as fh:
+            fh.write(png_bytes(rgb))
+        with open(os.path.join(raw, f"{f:04d}_meta.txt"), "w") as fh:
+            fh.write(f"3 6 mug_white_green_norm\n7 1 {DATA_NOCS_INSTANCE}\n")
+        pts, _ = backproject_depth(torch.from_numpy(depth.astype(np.int32)),
+                                   NOCS_REAL_INTRINSICS)
+        obj = pts.numpy()[mask.reshape(-1)]
+        center = obj.mean(0)
+        np.savez(os.path.join(data, f"{f:04d}.npz"), all_dict={
+            "points": obj.astype(np.float32),
+            "labels": np.ones(len(obj), np.int64),
+            "pose": {"rotation": np.eye(3, dtype=np.float32),
+                     "translation": center.reshape(3, 1).astype(np.float32),
+                     "scale": np.float32(0.25)},
+            "path": depth_path})
+        other = np.zeros((H, W), bool)
+        other[10:60, 10:60] = True
+        result = {"pred_class_ids": np.array([3, 1]),
+                  "pred_bboxes": np.array([[10, 10, 59, 59],
+                                           [oy + f, ox + f, oy + f + side - 1,
+                                            ox + f + side - 1]], np.float32),
+                  "pred_masks": np.stack([other, mask], axis=-1)}
+        with open(os.path.join(root, "nocs2d",
+                               f"results_test_scene_1_{f:04d}.pkl"),
+                  "wb") as fh:
+            pickle.dump(result, fh)
+
+
+def fps_kernel(B: int, N: int) -> str:
+    """The kernel a CUDA cloud batch [B, N] launches: `route`'s wrapper,
+    or its cluster above one CTA."""
+    from captra_tpu_torch.ops import fps
+    name = fps.route(B, N)
+    if name != "fps_cuda_blocked" and N > fps.single_cta_points(name):
+        name += "_cluster"
+    return name
+
+
+def predicted_launches(cfg, B: int, image_hw=None) -> dict:
+    """FPS launches a tracked step of B trajectories: sa1 and sa2 of the
+    CoordNet (B clouds) and of the RotNet (B x P clouds), and with an
+    image the OTF crop."""
+    from collections import Counter
+    P, N, n1 = cfg.obj.num_parts, cfg.num_points, cfg.pointnet.sa1.npoint
+    shapes = [(B, N), (B, n1), (B * P, N), (B * P, n1)]
+    if image_hw is not None:
+        shapes.append((B, min(N * cfg.track.otf_work_factor,
+                              image_hw[0] * image_hw[1])))
+    return dict(Counter(fps_kernel(*s) for s in shapes))
+
+
+def _timed_reads(sequences, clock: list):
+    """`sequences` with the time of each batch's reading and collation
+    added to `clock`."""
+    def wrapped(cfg, mode=None):
+        it = iter(sequences(cfg, mode))
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            clock.append(time.perf_counter() - t0)
+            yield item
+    return wrapped
+
+
+def phase_data(kernels: dict) -> dict:
+    """The track CLI on the card on datasets on disk (DATA_RUNS), written
+    at 480x640 in a temporary directory from SEED, from checkpoints of the
+    seeded nets: per run `cli.track.main` (counters zeroed just before, read
+    just after: FPS launches a tracked frame as `route` predicts), one
+    result pickle a trajectory with finite poses within POSE_TOL of
+    `track_trajectory` on the same nets, batches and draws,
+    `cli.evaluate.main` with IoU (err.csv with a row a tracked frame and
+    every metric); the twin's FPS inputs recorded and each kernel held
+    against the plain FPS on them (into `kernels`); reader seconds a frame
+    cold (the CLI's own reads: SAPIEN writes its cache) and warm (read
+    again).  Then the host core's FPS of a reader's frame, and
+    `otf_frame_from_depth` on one frame of the NOCS scene against the same
+    call with the plain FPS."""
+    import pickle
+    from captra_tpu_torch.cli import track
+    from captra_tpu_torch.data import native, preprocess
+    from captra_tpu_torch.data.factory import make_dataset
+    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.pose.part_dof import Pose
+    from captra_tpu_torch.tracking.tracker import (
+        init_pose_from_gt, make_track_step, track_trajectory,
+    )
+
+    dev = torch.device("cuda")
+    H, W = DATA_IMAGE_HW
+    out = {"runs": {}}
+    with tempfile.TemporaryDirectory(prefix="captra_data_") as tmp:
+        root = os.path.join(tmp, "data")
+        rng = np.random.RandomState(SEED)
+        t0 = time.perf_counter()
+        _, cfg = track.parse(["--basepath", root])
+        frames = {"sapien": cfg.obj.num_frames, "nocs": DATA_NOCS_FRAMES}
+        write_sapien(root, frames["sapien"], rng)
+        write_nocs(root, frames["nocs"], rng)
+        log(f"data: fixtures written in {time.perf_counter() - t0:.2f} s "
+            f"under a temporary directory: SAPIEN laptop "
+            f"{len(DATA_SAPIEN_INSTANCES)} tracks x {frames['sapien']} "
+            f"frames, NOCS bottle 1 scene x {frames['nocs']} frames, {H}x{W}")
+        for name, flags in DATA_RUNS:
+            exp = os.path.join(tmp, name)
+            common = ["--basepath", root, "--experiment_dir",
+                      os.path.join(exp, "rot"), "--coord_exp/dir",
+                      os.path.join(exp, "coord"),
+                      *[f.replace("{root}", root) for f in flags]]
+            argv = ["--save", *common]
+            args, cfg = track.parse(argv)
+            nets = write_checkpoints(cfg, dev, os.path.join(exp, "coord"),
+                                     os.path.join(exp, "rot"))
+            otf = cfg.track.nocs_otf
+            n_frames = frames["nocs" if cfg.obj.nocs_data else "sapien"]
+
+            tracked, reads = [], []
+            sequences, dataset_sequences = (track.track_sequences,
+                                            track.dataset_sequences)
+
+            def record(cfg, step, seqs, **kwargs):
+                tracked.extend(seqs)
+                return sequences(cfg, step, tracked, **kwargs)
+
+            track.track_sequences = record
+            track.dataset_sequences = _timed_reads(dataset_sequences, reads)
+            try:
+                sync(dev)
+                fps.reset_launch_counts()
+                text, _, main_s = _printed(track.main, argv, device=dev)
+                launches = dict(fps.launch_counts)
+            finally:
+                track.track_sequences = sequences
+                track.dataset_sequences = dataset_sequences
+            for line in text.strip().splitlines():
+                log(f"  | {line}")
+            batches = _BATCH_LINE.findall(text)
+            n_traj = sum(int(b[2]) for b in batches)
+            B = int(batches[0][2])
+            want_traj = 1 if cfg.obj.nocs_data else len(DATA_SAPIEN_INSTANCES)
+            if (len(batches) != 1 or n_traj != want_traj
+                    or int(batches[0][1]) != n_frames - 1):
+                raise AssertionError(f"data {name}: batches {batches}")
+            steps = n_frames - 1 + track.WARMUP_FRAMES - 1
+            per_step = predicted_launches(cfg, B, (H, W) if otf else None)
+            want = {k: per_step.get(k, 0) * steps for k in launches}
+            if launches != want:
+                raise AssertionError(f"data {name}: FPS launches {launches}, "
+                                     f"expected {want}")
+            cold_s = sum(reads) / (n_traj * n_frames)
+            t0 = time.perf_counter()
+            ds = make_dataset(cfg, args.mode_name)
+            for i in range(len(ds)):
+                ds[i]
+            warm_s = (time.perf_counter() - t0) / len(ds)
+
+            data_dir = os.path.join(exp, "rot", "results", "data")
+            names, batch = tracked[0]
+            names = (names,) if isinstance(names, str) else names
+            files = [n.replace("/", "_") + ".pkl" for n in names]
+            if sorted(os.listdir(data_dir)) != sorted(files):
+                raise AssertionError(f"data {name}: result files "
+                                     f"{os.listdir(data_dir)}")
+            saved = []
+            for f in files:
+                with open(os.path.join(data_dir, f), "rb") as fh:
+                    saved.append(pickle.load(fh))
+            # the twin: the same nets (not through a checkpoint), the batch
+            # the CLI tracked, the CLI's draws (its generator of seed 0: the
+            # init noise, then the crop's shifts), `track_trajectory`
+            gen = torch.Generator().manual_seed(0)
+            init = init_pose_from_gt(
+                batch["pose"][0], cfg, generator=gen,
+                crop_translation=(batch["crop_translation"][0]
+                                  if "crop_translation" in batch else None),
+                crop_scale=(batch["crop_scale"][0]
+                            if "crop_scale" in batch else None))
+            if otf:
+                T_, B_, H_, W_ = batch["depth"].shape
+                frames_in = {"depth": batch["depth"], "mask": batch["mask"],
+                             "shift": torch.randint(0, H_ * W_, (T_, B_),
+                                                    generator=gen)}
+                if cfg.track.nocs2d_label:
+                    for k in ("det_masks", "det_boxes", "det_valid"):
+                        frames_in[k] = batch[k]
+            else:
+                frames_in = {"points": batch["points"]}
+            step = make_track_step(cfg, *nets, device=dev)
+            calls = {}
+            with recording_fps(calls):
+                _, aux = track_trajectory(
+                    step, init, {k: v.to(dev) for k, v in frames_in.items()},
+                    device=dev)
+            diff = check_saved_poses(f"data {name}", saved, aux)
+            eval_s = check_evaluate(f"data {name} evaluate (iou)", common,
+                                    dev, os.path.join(exp, "rot"),
+                                    n_traj * (n_frames - 1),
+                                    cfg.obj.num_parts, True)
+
+            by_shape = {}
+            for (n, npoint), clouds in calls.items():
+                for xyz in clouds:
+                    by_shape.setdefault((xyz.shape[0], n, npoint),
+                                        []).append(xyz)
+            for (b, n, npoint), clouds in sorted(by_shape.items()):
+                check_video(fps, kernels, (fps.route(b, n),), clouds, npoint,
+                            name, n_frames - 1, DATA_VIDEO, path="data")
+            out["runs"][name] = run = dict(
+                B=B, trajectories=n_traj, frames=n_frames, launches=launches,
+                ms_per_step=float(batches[0][3]) * 1e3 / (n_frames - 1),
+                frames_per_s=float(batches[0][4]), track_main_s=main_s,
+                reader_cold_s_per_frame=cold_s,
+                reader_warm_s_per_frame=warm_s, evaluate_s=eval_s,
+                twin_max_pose_diff=diff)
+            log(f"data {name}: B={B}, {n_traj} trajectories x {n_frames} "
+                f"frames; reader {cold_s:.4f} s a frame cold (the CLI's own "
+                f"reads), {warm_s:.4f} s warm (read again); CLI tracking "
+                f"{run['ms_per_step']:.2f} ms a step, "
+                f"{run['frames_per_s']} tracked frames/s as it prints "
+                f"them; main {main_s:.2f} s; FPS launches a tracked frame "
+                f"{_frame_launches(launches, steps)}")
+
+        # the host core's FPS of one reader frame: 5 x 4096 points -> 4096
+        cloud = np.random.RandomState(SEED).randn(
+            5 * cfg.num_points, 3).astype(np.float32)
+        host_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            native.fps(cloud, cfg.num_points)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        out["host_fps_ms"] = float(np.median(host_ms))
+        log(f"data: host core FPS [{len(cloud)}]->{cfg.num_points} "
+            f"{out['host_fps_ms']:.1f} ms (median of 3; min "
+            f"{min(host_ms):.1f}, max {max(host_ms):.1f})")
+
+        # otf_frame_from_depth on frame 0 of the NOCS scene, kernels against
+        # the plain FPS
+        ds = make_dataset(cfg, "real_test")
+        item = ds[0]
+        pre, pose = item["meta"]["pre_fetched"], item["meta"]["pose"]
+        depth = torch.from_numpy(pre["depth"]).to(dev)
+        draw = torch.rand(depth.numel(), generator=torch.Generator()
+                          .manual_seed(SEED)).to(dev)
+        gt = Pose(*(torch.as_tensor(np.asarray(pose[f])).to(dev)
+                    for f in ("rotation", "translation", "scale")))
+        frame_args = (draw, depth, torch.from_numpy(pre["mask"]).to(dev),
+                      preprocess.NOCS_REAL_INTRINSICS, gt.translation[:, 0],
+                      cfg.data_radius * gt.scale, gt, cfg.num_points)
+        got = preprocess.otf_frame_from_depth(*frame_args)
+        with plain_fps_on_card():
+            want = preprocess.otf_frame_from_depth(*frame_args)
+        for k in ("points", "labels", "nocs"):
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"data otf_frame_from_depth: {k} with "
+                                     "the kernels differ from the plain FPS")
+        log(f"data otf_frame_from_depth: {H}x{W} frame "
+            f"-> {cfg.num_points} points ({int((got['labels'] == 0).sum())} "
+            "on the object), equal to the plain FPS's")
     return out
 
 
@@ -1324,6 +1789,8 @@ def main() -> int:
     lap("init_search")
     cli = phase_cli(kernels=kernels)
     lap("cli")
+    data = phase_data(kernels=kernels)
+    lap("data")
 
     line = []
     for name, cases in kernels.items():
@@ -1337,7 +1804,9 @@ def main() -> int:
                    **{f"init_{r}": v["launches"][name]
                       for r, v in init.items()},
                    **{f"cli_{r}": v["launches"][name]
-                      for r, v in cli.items()}}
+                      for r, v in cli.items()},
+                   **{f"data_{r}": v["launches"][name]
+                      for r, v in data["runs"].items()}}
         line.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
@@ -1354,6 +1823,7 @@ def main() -> int:
     log(json.dumps({"otf": otf}))
     log(json.dumps({"init_search": init}))
     log(json.dumps({"cli": cli}))
+    log(json.dumps({"data": data}))
     log(json.dumps({"seconds": seconds}))
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -466,7 +466,7 @@ def test_otf_branch_tracks_the_depth_video(case, tmp_path):
 
 
 @pytest.mark.parametrize("argv,field", [
-    ([], "--synthetic_data"),
+    (["--num_devices", "2"], "--num_devices"),
     (["--synthetic_data", "--num_devices", "2"], "--num_devices"),
 ])
 def test_track_main_raises_for_what_is_not_ported(argv, field):

@@ -357,3 +357,45 @@ def test_grid_iou_on_the_card_equals_the_cpu(card):
     got = bbox.iou_3d(boxes[0].to(card), boxes[1].to(card))
     assert (want > 0).any()
     assert torch.equal(got.cpu(), want)
+
+
+def test_host_data_core_builds_and_loads(card):
+    """The readers' C++ core (g++, no card code) on the card's machine:
+    built from `csrc/pointops_host.cpp`, its FPS equal to the plain FPS."""
+    from captra_tpu_torch.data import native
+    rng = np.random.RandomState(4)
+    xyz = rng.randn(3000, 3).astype(np.float32)
+    got = native.fps(xyz, 256)
+    want = fps.fps_plain(torch.from_numpy(xyz)[None], 256)[0]
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_otf_frame_from_depth_on_the_card_equals_plain_fps(card):
+    """The dataset path's crop of a 480x640 frame on the card: its FPS of
+    the [1, 20480] working set (the wide cluster) against the same call
+    with the plain FPS on the card; indices, points and labels equal."""
+    from captra_tpu_torch.data import depth_frames, preprocess
+    from captra_tpu_torch.ops import pointops
+    from captra_tpu_torch.pose.part_dof import Pose
+    depth, mask = depth_frames.make_depth_frames(1, 1, seed=0)
+    depth = torch.from_numpy(depth[0, 0]).to(card)
+    mask = torch.from_numpy(mask[0, 0]).to(card)
+    pose = depth_frames.otf_init_pose(depth.cpu().numpy(),
+                                      mask.cpu().numpy(), 1, 1)
+    pose = Pose(pose.rotation[0, 0], pose.translation[0, 0],
+                pose.scale[0, 0]).to(card)
+    draw = torch.rand(depth.numel(), generator=torch.Generator().manual_seed(
+        0)).to(card)
+    args = (draw, depth, mask, preprocess.NOCS_REAL_INTRINSICS,
+            pose.translation[:, 0], 0.6 * pose.scale, pose, 4096)
+    fps.reset_launch_counts()
+    got = preprocess.otf_frame_from_depth(*args)
+    assert fps.launch_counts["fps_cuda_wide_cluster"] == 1
+    routed = pointops.farthest_point_sample_indices
+    pointops.farthest_point_sample_indices = fps.fps_plain
+    try:
+        want = preprocess.otf_frame_from_depth(*args)
+    finally:
+        pointops.farthest_point_sample_indices = routed
+    for k in ("points", "labels", "nocs"):
+        assert torch.equal(got[k], want[k]), k

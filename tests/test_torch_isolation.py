@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither JAX, flax, optax, orbax nor
-`captra_tpu`, and its entry points refuse to run quietly on the CPU."""
+"""The port stands alone: it imports neither JAX, flax, optax, orbax,
+`captra_tpu` nor OpenCV (the card's machine has none: the readers decode
+PNGs themselves), and its entry points refuse to run quietly on the
+CPU."""
 import dataclasses
 import os
 import re
@@ -28,7 +30,8 @@ from tests.torch_port_helpers import tiny_config
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "captra_tpu_torch")
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(jax|flax|optax|orbax|captra_tpu)(?:\.|\s|$)",
+    r"^\s*(?:import|from)\s+(jax|flax|optax|orbax|captra_tpu|cv2)"
+    r"(?:\.|\s|$)",
     re.M)
 
 
@@ -49,8 +52,8 @@ def test_import_pulls_in_no_jax():
         "                               'captra_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules\n"
-        "             if n.split('.')[0] in ('jax', 'flax', 'optax', 'orbax',\n"
-        "                                    'captra_tpu'))\n"
+        "             if n.split('.')[0] in ('jax', 'flax', 'optax',\n"
+        "                                    'orbax', 'captra_tpu', 'cv2'))\n"
         "print(len(sys.modules), bad)\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -72,7 +75,8 @@ def test_sources_import_no_jax():
 def test_forbidden_pattern_catches_imports():
     for line in ("import jax", "from jax import numpy", "import flax.linen",
                  "from captra_tpu.ops import fps", "  import captra_tpu",
-                 "import optax", "from orbax import checkpoint as ocp"):
+                 "import optax", "from orbax import checkpoint as ocp",
+                 "import cv2", "from cv2 import imread"):
         assert _FORBIDDEN.search(line), line
     for line in ("import captra_tpu_torch", "from captra_tpu_torch import x",
                  "import jaxlib_free"):
@@ -93,6 +97,8 @@ def _entry_points(cfg):
             None, np.zeros((1, 8, 3), np.float32), Pose.identity((1, 1)),
             cfg),
         "cli.track.main": lambda: track_cli.main(["--synthetic_data"]),
+        "cli.track.main on disk": lambda: track_cli.main(
+            ["--mode_name", "real_test"]),
         "cli.evaluate.main": lambda: evaluate_cli.main([]),
         "evaluate_results_dir": lambda: evaluate_results_dir(
             "results", cfg.obj),

@@ -53,3 +53,52 @@ def perturb(tree, rng):
 
 def cloud(rng, *shape):
     return (rng.randn(*shape, 3) * 0.3).astype(np.float32)
+
+
+def assert_tree_equal(got, want, roots=(), where="item"):
+    """Dataset items (and caches) bit for bit: the same keys and types,
+    arrays equal in dtype, shape and value, strings equal once each
+    package's fixture root in `roots` ((port root, JAX root), ...) is
+    replaced by the other's."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and sorted(got) == sorted(want), where
+        for k in want:
+            assert_tree_equal(got[k], want[k], roots, f"{where}[{k!r}]")
+    elif isinstance(want, (list, tuple)):
+        assert type(got) is type(want) and len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_tree_equal(g, w, roots, f"{where}[{i}]")
+    elif isinstance(want, str):
+        for port_root, jax_root in roots:
+            got = got.replace(port_root, jax_root)
+        assert got == want, where
+    elif isinstance(want, np.ndarray) or isinstance(want, np.generic):
+        assert type(got) is type(want), (where, type(got), type(want))
+        assert got.dtype == want.dtype, (where, got.dtype, want.dtype)
+        np.testing.assert_array_equal(got, want, err_msg=where)
+    else:
+        assert type(got) is type(want) and got == want, (where, got, want)
+
+
+def png_filter_row(kind: int, cur: bytes, prev: bytes, bpp: int) -> bytes:
+    """One scanline filtered with PNG filter `kind` (0-4), byte by byte as
+    the PNG specification writes it; `prev` the unfiltered row above."""
+    out = bytearray(len(cur))
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        b = prev[i]
+        c = prev[i - bpp] if i >= bpp else 0
+        if kind == 0:
+            pred = 0
+        elif kind == 1:
+            pred = a
+        elif kind == 2:
+            pred = b
+        elif kind == 3:
+            pred = (a + b) >> 1
+        else:
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        out[i] = (cur[i] - pred) & 0xFF
+    return bytes(out)
