@@ -1,11 +1,12 @@
-"""Frame collation and trajectory batches for tracking (counterpart of the
-serving half of `captra_tpu/data/loader.py`: `_pose_from_meta`,
-`collate_frames`, `sequence_batches`).
+"""Frame collation, training batches and trajectory batches (counterpart
+of `captra_tpu/data/loader.py`).
 
 Batches are assembled in numpy on the host and returned as CPU tensors
-(and a `Pose` of CPU tensors); `cli/track.py::track_sequences` moves them
-to the card.  Point shuffling, `single_frame_batches`, `prefetch` and
-`Mixture` are training's and are not ported.
+(and a `Pose` of CPU tensors); the tracker and the trainer move them to the
+card.  For the same seed, `single_frame_batches` gives the JAX function's
+frame order and point shuffle; `prefetch` overlaps the host's reads and
+collation with the device's steps; `Mixture` samples several streams by
+ratio.
 """
 from __future__ import annotations
 
@@ -33,18 +34,30 @@ def _tensor(items, fn) -> torch.Tensor:
     return torch.from_numpy(np.stack([fn(it) for it in items]))
 
 
-def collate_frames(items: Sequence[dict]) -> dict:
+def collate_frames(items: Sequence[dict], shuffle_points: bool = False,
+                   rng: np.random.RandomState | None = None) -> dict:
     """List of dataset items -> batched CPU tensors {points[, labels,
     nocs], pose: Pose [B, P], corners [B, P, 2, 3][, depth, mask[,
     det_masks, det_boxes, det_valid]][, crop_translation [B, 1, 3, 1],
     crop_scale [B, 1]]}.
 
     Each optional key is emitted only when every item carries it: GT-less
-    real captures serve bare {points} frames and still collate."""
-    out = {"points": _tensor(items, lambda it: it["data"]["points"])}
+    real captures serve bare {points} frames and still collate.
+    shuffle_points permutes each frame's points (with its labels and
+    nocs) by `rng.permutation`, frame by frame, as the JAX function does;
+    it needs `rng`."""
+    data = {"points": np.stack([it["data"]["points"] for it in items])}
     for k in ("labels", "nocs"):
         if all(k in it["data"] for it in items):
-            out[k] = _tensor(items, lambda it: it["data"][k])
+            data[k] = np.stack([it["data"][k] for it in items])
+    if shuffle_points:
+        if rng is None:
+            raise ValueError("collate_frames(shuffle_points=True) needs rng")
+        for b in range(data["points"].shape[0]):
+            perm = rng.permutation(data["points"].shape[1])
+            for v in data.values():
+                v[b] = v[b, perm]
+    out = {k: torch.from_numpy(v) for k, v in data.items()}
     metas = [it["meta"] for it in items]
     if all("pose" in m for m in metas):
         poses = [_pose_from_meta(m["pose"]) for m in metas]
@@ -123,3 +136,93 @@ def sequence_batches(dataset, num_frames: int | None = None,
                 pending = []
         if pending:
             yield flush(pending)
+
+
+def single_frame_batches(dataset, batch_size: int, shuffle: bool = True,
+                         seed: int = 0, drop_last: bool = True,
+                         shuffle_points: bool = True,
+                         start_batch: int = 0) -> Iterator[dict]:
+    """Epoch iterator of collated batches: the frame order shuffled by
+    `RandomState(seed)`, each batch's points shuffled by the same stream.
+    start_batch skips the first batches without reading them (the same
+    order; their point-shuffle draws are not replayed), to fast-forward a
+    resumed stream."""
+    rng = np.random.RandomState(seed)
+    order = np.arange(len(dataset))
+    if shuffle:
+        rng.shuffle(order)
+    for bi, start in enumerate(
+            range(0, len(order) - (batch_size - 1 if drop_last else 0),
+                  batch_size)):
+        idxs = order[start:start + batch_size]
+        if len(idxs) < batch_size and drop_last:
+            break
+        if bi < start_batch:
+            continue
+        yield collate_frames([dataset[int(i)] for i in idxs],
+                             shuffle_points=shuffle_points, rng=rng)
+
+
+def prefetch(iterator: Iterator, size: int = 2) -> Iterator:
+    """Background-thread buffering: a worker thread runs `iterator` (disk
+    reads, collation) while the consumer's steps run, at most `size` items
+    ahead.  An error in the worker is raised in the consumer.  If the
+    consumer abandons the generator, the worker is told to stop and is not
+    left blocked on a full queue holding its items."""
+    import queue
+    import threading
+
+    q: queue.Queue = queue.Queue(maxsize=size)
+    end = object()
+    err: list[BaseException] = []
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterator:
+                if not put(item):
+                    return
+        except BaseException as e:  # noqa: BLE001 - raised in the consumer
+            err.append(e)
+        finally:
+            # the end marker must reach a consumer that still reads
+            put(end)
+
+    threading.Thread(target=worker, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        stop.set()
+
+
+class Mixture:
+    """Sample from several iterators with given ratios: `next` gives (key,
+    the next item of that iterator), the key drawn by `RandomState(seed)`
+    over the sorted keys."""
+
+    def __init__(self, iterators: dict, ratios: dict, seed: int = 0):
+        self.iterators = iterators
+        keys = sorted(iterators)
+        probs = np.asarray([ratios[k] for k in keys], np.float64)
+        self.keys = keys
+        self.probs = probs / probs.sum()
+        self.rng = np.random.RandomState(seed)
+
+    def __next__(self):
+        key = self.rng.choice(self.keys, p=self.probs)
+        return key, next(self.iterators[key])

@@ -1,10 +1,14 @@
-"""Synthetic trajectories in numpy (counterpart of the host-side generator
-in `captra_tpu/data/synthetic.py`, draw for draw the same numbers).
+"""Synthetic trajectories and training batches (counterpart of
+`captra_tpu/data/synthetic.py`; the host-side generator in numpy, draw for
+draw the same numbers).
 
 Per-part NPCS clouds on shells (a surface of revolution for symmetric
 categories, box faces otherwise), a smooth per-frame 9-DoF pose trajectory
 (child parts follow the root with joint motion), and observed camera clouds
-= posed NPCS + sensor noise.
+= posed NPCS + sensor noise.  `make_frame_batch` cuts single-frame training
+batches from them; `geometry_pool` keeps the pose-free geometry on the host
+and `device_pose_batch` renders it under fresh random poses on the device,
+its draws explicit (`draw_pose_batch` from a `torch.Generator`, or given).
 """
 from __future__ import annotations
 
@@ -14,7 +18,11 @@ import numpy as np
 import torch
 
 from captra_tpu_torch.config.schema import ObjCfg
+from captra_tpu_torch.device import constant
 from captra_tpu_torch.pose.part_dof import Pose, tree_root
+from captra_tpu_torch.pose.rotations import (
+    axis_theta_to_matrix, quat_to_matrix,
+)
 
 
 @dataclass
@@ -165,3 +173,155 @@ def batch_trajectories(trajs: list[Trajectory]) -> dict:
                          for k in ("rotation", "translation", "scale")))
     out["corners"] = np.stack([t.corners for t in trajs])
     return out
+
+
+def make_frame_batch(seed: int, obj: ObjCfg, batch: int = 8,
+                     num_points: int = 512, num_frames: int = 4) -> dict:
+    """Single-frame training batch of CPU tensors: points [B, N, 3],
+    labels [B, N], nocs [B, N, 3], pose (a `Pose` [B, P]), corners
+    [B, P, 2, 3]; frame `seed % num_frames` of trajectories `seed * 131 +
+    b`."""
+    trajs = [make_trajectory(seed * 131 + b, obj, num_frames=num_frames,
+                             num_points=num_points) for b in range(batch)]
+    f = seed % num_frames
+
+    def stack(name):
+        return torch.from_numpy(np.stack([getattr(t, name)[f]
+                                          for t in trajs]))
+
+    return {"points": stack("points"), "labels": stack("labels"),
+            "nocs": stack("nocs"),
+            "pose": Pose(stack("rotation"), stack("translation"),
+                         stack("scale")),
+            "corners": torch.from_numpy(np.stack([t.corners
+                                                  for t in trajs]))}
+
+
+def geometry_pool(seed: int, obj: ObjCfg, count: int,
+                  num_points: int) -> dict:
+    """Host NPCS geometry for device-side pose resampling, numpy: {npcs
+    [G, N, 3], labels [G, N], corners [G, P, 2, 3]} (the pose- and
+    noise-free part of `make_trajectory`)."""
+    rng = np.random.RandomState(seed)
+    P = obj.num_parts
+    shell = _revolution_shell if obj.sym else _part_shell
+    all_npcs, all_labels, all_corners = [], [], []
+    for _ in range(count):
+        sizes = rng.uniform(0.08, 0.18, (P, 3)).astype(np.float32)
+        offsets = np.zeros((P, 3), np.float32)
+        for p in range(P):
+            offsets[p, 0] = (p - (P - 1) / 2) * 0.25
+        n_per = num_points // P
+        npcs_parts, labels_parts = [], []
+        for p in range(P):
+            npcs_parts.append(shell(rng, n_per, sizes[p]) + offsets[p])
+            labels_parts.append(np.full(n_per, p, np.int64))
+        rest = num_points - n_per * P
+        if rest:
+            npcs_parts.append(shell(rng, rest, sizes[0]) + offsets[0])
+            labels_parts.append(np.full(rest, 0, np.int64))
+        all_npcs.append(np.concatenate(npcs_parts).astype(np.float32))
+        all_labels.append(np.concatenate(labels_parts))
+        all_corners.append(np.stack([offsets - sizes, offsets + sizes],
+                                    axis=1))
+    return {"npcs": np.stack(all_npcs), "labels": np.stack(all_labels),
+            "corners": np.stack(all_corners)}
+
+
+def draw_pose_batch(B: int, N: int, P: int,
+                    generator: torch.Generator) -> dict:
+    """`device_pose_batch`'s raw draws for B clouds of N points and P parts
+    from `generator`, on its device: standard normal "quat" [B, 4] and
+    "noise" [B, N, 3], uniform [0, 1) "trans" [B, 3], "scale" [B] and
+    "theta" [B, P]."""
+    def normal(*shape):
+        return torch.randn(shape, generator=generator,
+                           device=generator.device)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=generator,
+                          device=generator.device)
+
+    return {"quat": normal(B, 4), "trans": uniform(B, 3),
+            "scale": uniform(B), "theta": uniform(B, P),
+            "noise": normal(B, N, 3)}
+
+
+def _uniform(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    # jax.random.uniform's map of [0, 1) floats onto [lo, hi), in float32
+    span = float(np.float32(hi) - np.float32(lo))
+    return torch.clamp_min(u * span + lo, lo)
+
+
+def device_pose_batch(npcs: torch.Tensor, labels: torch.Tensor,
+                      corners: torch.Tensor, obj: ObjCfg,
+                      draws: dict | None = None,
+                      generator: torch.Generator | None = None,
+                      scale_range=(0.15, 0.3), noise: float = 0.002) -> dict:
+    """Re-render pooled NPCS geometry under fresh random poses on its
+    device: npcs [B, N, 3], labels [B, N], corners [B, P, 2, 3] -> a
+    training batch {points, labels, nocs, pose, corners}.  The root pose is
+    uniform-random (a normalised Gaussian quaternion, translation in
+    [-0.1, 0.1)^3 + (0, 0, 0.8), one scale in `scale_range`); child parts
+    turn about `main_axis` anchored at their NPCS centre (or slide along
+    it) by a joint state in [0, 0.6), as `make_trajectory` moves them.
+
+    The draws are `draws` (`draw_pose_batch`'s raw normals and [0, 1)
+    uniforms), else drawn from `generator`, else this raises."""
+    B, N, _ = npcs.shape
+    P = obj.num_parts
+    if draws is None:
+        if generator is None:
+            raise ValueError("device_pose_batch needs its draws (draws=) or "
+                             "a torch.Generator")
+        draws = draw_pose_batch(B, N, P, generator)
+    q = draws["quat"]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    R_root = quat_to_matrix(q)                                  # [B, 3, 3]
+    t_root = _uniform(draws["trans"], -0.1, 0.1) + constant(
+        (0.0, 0.0, 0.8), npcs.dtype, npcs.device)
+    s = _uniform(draws["scale"], *scale_range)
+    theta = _uniform(draws["theta"], 0.0, 0.6)
+
+    offsets = torch.mean(corners, dim=2)                        # [B, P, 3]
+    R, t = _compose_parts(R_root, t_root, s, theta, offsets, obj)
+
+    posed = torch.einsum("bpij,bnj->bpni", R, npcs) * s[:, None, None, None] \
+        + t[:, :, None]                                         # [B,P,N,3]
+    own = torch.gather(posed, 1, labels.long()[:, None, :, None].expand(
+        B, 1, N, 3))[:, 0]
+    points = own + noise * draws["noise"]
+    pose = Pose(rotation=R, translation=t[..., None],
+                scale=s[:, None].expand(B, P))
+    return {"points": points, "labels": labels, "nocs": npcs, "pose": pose,
+            "corners": corners}
+
+
+def _compose_parts(R_root, t_root, s, theta, offsets, obj: ObjCfg):
+    """Per-part poses from a root pose and per-part joint states: R_root
+    [M, 3, 3], t_root [M, 3], s [M], theta [M, P], offsets [M, P, 3] ->
+    (R [M, P, 3, 3], t [M, P, 3])."""
+    M = R_root.shape[0]
+    root = tree_root(obj.tree)
+    eye = torch.eye(3, dtype=R_root.dtype, device=R_root.device)
+    Rs, ts = [], []
+    for p in range(obj.num_parts):
+        if p == root or obj.num_joints == 0:
+            Rs.append(R_root)
+            ts.append(t_root)
+            continue
+        jidx = min(p, len(obj.main_axis) - 1) if obj.main_axis else 0
+        ax = [0.0, 0.0, 0.0]
+        ax[obj.main_axis[jidx] if obj.main_axis else 1] = 1.0
+        ax = constant(tuple(ax), R_root.dtype, R_root.device)
+        if obj.joint_type == "prismatic":
+            R_local = eye.expand(M, 3, 3)
+            t_local = ax * theta[:, p:p + 1] * 0.3                 # [M, 3]
+        else:
+            R_local = axis_theta_to_matrix(ax.expand(M, 3), theta[:, p])
+            t_local = torch.einsum("bij,bj->bi", eye - R_local,
+                                   offsets[:, p])
+        Rs.append(torch.einsum("bij,bjk->bik", R_root, R_local))
+        ts.append(s[:, None] * torch.einsum("bij,bj->bi", R_root, t_local)
+                  + t_root)
+    return torch.stack(Rs, dim=1), torch.stack(ts, dim=1)

@@ -34,7 +34,8 @@ class SetAbstractionMsg(nn.Module):
         self.out_dim = sum(m[-1] for m in cfg.mlp_list)
 
     def forward(self, xyz, feats):
-        fps_idx = ops.farthest_point_sample(xyz, self.cfg.npoint,
+        # FPS picks indices and takes no gradient
+        fps_idx = ops.farthest_point_sample(xyz.detach(), self.cfg.npoint,
                                             mode=self.fps_mode)
         new_xyz = ops.gather_xyz(xyz, fps_idx)  # [B, S, 3]
         outs = []

@@ -13,10 +13,10 @@ call; BatchNorm and GroupNorm normalise in float32 (float32 running or
 group statistics, flax's `_normalize` promotion) and return the dtype;
 activations run in it.
 
-Momentum convention for later training: flax BatchNorm keeps
-`running = m * running + (1 - m) * batch` (m = `bn_momentum`, 0.9), torch
-keeps `running += m_torch * (batch - running)`; the port stores
-`momentum = 1 - bn_momentum`.  The slice runs the nets in eval mode only.
+Momentum convention: flax BatchNorm keeps `running = m * running + (1 - m)
+* batch` (m = `bn_momentum`, 0.9), torch keeps `running += m_torch * (batch
+- running)`; the port stores `momentum = 1 - bn_momentum` and, in train
+mode, writes the running statistics in flax's formula itself (`BatchNorm`).
 """
 from __future__ import annotations
 
@@ -32,14 +32,55 @@ _ACTIVATIONS = {
 }
 
 
+def _stat_dtype(dtype: torch.dtype) -> torch.dtype:
+    # flax's statistics dtype: at least float32 (float64 stays float64)
+    return torch.promote_types(dtype, torch.float32)
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or in its own dtype when that is wider."""
+    return x.to(_stat_dtype(x.dtype))
+
+
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over the trailing channel of [B, ..., C] (eps 1e-5, as
     flax's default).  A bfloat16 / float16 input is normalised in float32
     from the float32 statistics and parameters and returned in its own
-    dtype (torch's mixed-dtype batch norm: flax's order and rounding)."""
+    dtype (torch's mixed-dtype batch norm: flax's order and rounding).
+
+    In train mode the output is torch's, normalised with the batch
+    statistics, and the running statistics are written here as flax
+    writes them, not as torch does: the variance is the biased
+    E[x^2] - E[x]^2 in float32, clamped at 0 (flax's `use_fast_variance`;
+    torch's is unbiased, n / (n - 1) larger), mixed in with flax's momentum
+    `1 - self.momentum`, and an entry that comes out non-finite keeps its
+    old value (the JAX trainer's guard, trainer.py:352-354)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+        if not self.training:
+            return super().forward(
+                x.reshape(-1, x.shape[-1])).reshape(x.shape)
+        flat = x.reshape(-1, x.shape[-1]).to(_stat_dtype(x.dtype))
+        y = F.batch_norm(flat, None, None, self.weight, self.bias,
+                         training=True, eps=self.eps)
+        with torch.no_grad():
+            mean = flat.mean(dim=0)
+            var = torch.clamp_min((flat * flat).mean(dim=0) - mean * mean,
+                                  0.0)
+            m = 1.0 - self.momentum
+            for stat, batch in ((self.running_mean, mean),
+                                (self.running_var, var)):
+                new = m * stat + (1.0 - m) * batch
+                stat.copy_(torch.where(torch.isfinite(new), new, stat))
+        return y.reshape(x.shape).to(x.dtype)
+
+
+def set_bn_momentum(module: nn.Module, bn_momentum: float) -> None:
+    """Give every `BatchNorm` of `module` the flax momentum `bn_momentum`
+    (the epoch schedule of the trainer); nothing is rebuilt."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.momentum = 1.0 - bn_momentum
 
 
 class GroupNorm(nn.Module):
@@ -53,8 +94,8 @@ class GroupNorm(nn.Module):
     next to their mean (measured: 1e-3 relative error at var 2e-5); the
     two-pass form keeps the port near the exact value, so its distance to
     the JAX output is about the JAX error alone.  Statistics and the
-    normalisation run in float32 whatever the input's dtype (flax's
-    default), and the output takes the input's dtype."""
+    normalisation run in at least float32 whatever the input's dtype
+    (flax's default), and the output takes the input's dtype."""
 
     def __init__(self, channels: int, group_size: int = 2, eps: float = 1e-5):
         super().__init__()
@@ -70,7 +111,7 @@ class GroupNorm(nn.Module):
         B, C = x.shape[0], x.shape[-1]
         G, gs = C // self.group_size, self.group_size
         dtype = x.dtype
-        x = x.float()
+        x = x.to(_stat_dtype(dtype))
         g = x.reshape(B, -1, G, gs)
         mean = g.mean(dim=(1, 3), keepdim=True)              # [B, 1, G, 1]
         var = torch.square(g - mean).mean(dim=(1, 3), keepdim=True)

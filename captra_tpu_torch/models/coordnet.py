@@ -9,7 +9,7 @@ from captra_tpu_torch.config.schema import Config
 from captra_tpu_torch.device import resolve_device
 from captra_tpu_torch.models.backbone import PointNet2Msg
 from captra_tpu_torch.models.blocks import (
-    PointMLP, compute_dtype, init_xavier_,
+    PointMLP, at_least_f32, compute_dtype, init_xavier_,
 )
 from captra_tpu_torch.pose import procrustes
 from captra_tpu_torch.pose.part_dof import Pose, canonicalize_columns
@@ -26,7 +26,8 @@ class CoordNet(nn.Module):
     NPCS [B, N, 3P], and with `network/basin_head` a basin logit [B].
 
     The backbone and heads compute in `network/compute_dtype`; softmax and
-    sigmoid run in float32, so seg and NPCS leave the net in float32.
+    sigmoid run in float32 (or wider), so seg and NPCS leave the net in
+    float32.
     Built on `device` (CUDA unless given; raises without a card), in eval
     mode, with flax's xavier initialisation drawn from `generator` (a CPU
     generator; None uses torch's global one)."""
@@ -62,12 +63,12 @@ class CoordNet(nn.Module):
     def forward(self, canon_points: torch.Tensor) -> dict:
         """canon_points: [B, N, 3] already canonicalized camera points."""
         feat = self.backbone(canon_points)
-        seg = torch.softmax(self.seg_head(feat).float(), dim=-1)
-        nocs = torch.sigmoid(self.nocs_head(feat).float()) - 0.5
+        seg = torch.softmax(at_least_f32(self.seg_head(feat)), dim=-1)
+        nocs = torch.sigmoid(at_least_f32(self.nocs_head(feat))) - 0.5
         out = {"seg": seg, "nocs": nocs}
         if self.basin_head:
             # read-only on the features: seg and NPCS do not depend on it
-            pooled = feat.detach().float()
+            pooled = at_least_f32(feat.detach())
             g = torch.cat([torch.amax(pooled, dim=1),
                            torch.mean(pooled, dim=1)], dim=-1)
             h = torch.relu(self.basin_fc1(g))

@@ -14,7 +14,7 @@ from captra_tpu_torch.config.schema import Config
 from captra_tpu_torch.device import constant, resolve_device
 from captra_tpu_torch.models.backbone import PointNet2Msg
 from captra_tpu_torch.models.blocks import (
-    PointMLP, compute_dtype, init_xavier_,
+    PointMLP, at_least_f32, compute_dtype, init_xavier_,
 )
 from captra_tpu_torch.pose import rotations as rot
 from captra_tpu_torch.pose.part_dof import (
@@ -45,9 +45,9 @@ class RotationRegressor(nn.Module):
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
         # feat [B, P, N, C]; head p sees feat[:, p]
-        raw = torch.stack([head(feat[:, p])
-                           for p, head in enumerate(self.heads)],
-                          dim=1).float()
+        raw = at_least_f32(torch.stack([head(feat[:, p])
+                                        for p, head in enumerate(self.heads)],
+                                       dim=1))
         if self.sym:
             return rot.normalize_vector(raw)  # unit y-vec per point
         R = rot.ortho6d_to_matrix(raw)        # [B, P, N, 3, 3]

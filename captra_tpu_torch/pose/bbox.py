@@ -17,6 +17,7 @@ import math
 import numpy as np
 import torch
 
+from captra_tpu_torch.device import constant
 from captra_tpu_torch.pose.part_dof import Pose, apply_pose
 from captra_tpu_torch.utils.precision import f32_precision
 
@@ -28,16 +29,16 @@ _CORNER_SEL = np.array([[(i % 4) // 2, i // 4, i % 2] for i in range(8)])
 
 def bbox_from_corners(corners: torch.Tensor) -> torch.Tensor:
     """[..., 2, 3] (min/max) -> 8 box vertices [..., 8, 3]."""
-    sel = torch.as_tensor(_CORNER_SEL, device=corners.device)
-    dims = torch.arange(3, device=corners.device)
+    sel = constant(tuple(map(tuple, _CORNER_SEL.tolist())), torch.int64,
+                   corners.device)
+    dims = constant((0, 1, 2), torch.int64, corners.device)
     return corners[..., sel, dims]
 
 
 def yaxis_from_corners(corners: torch.Tensor) -> torch.Tensor:
     """Keep only the y extent (symmetric categories supervise only the y
     axis)."""
-    return corners * torch.tensor((0.0, 1.0, 0.0), dtype=corners.dtype,
-                                  device=corners.device)
+    return corners * constant((0.0, 1.0, 0.0), corners.dtype, corners.device)
 
 
 def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

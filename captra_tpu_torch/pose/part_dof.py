@@ -118,6 +118,24 @@ def merge_delta_pose(base: Pose, delta_rotation: torch.Tensor | None = None,
     return Pose(rotation=rotation, translation=translation, scale=scale)
 
 
+@f32_precision
+def compute_parts_delta_pose(init: Pose, final: Pose, canon: Pose) -> Pose:
+    """Supervision target: the canonical-frame delta taking `init` to
+    `final` given the canonicalization pose `canon`, all per part [..., P]
+    (the (t_0 - t_c) term always included; it vanishes when t_0 == t_c)."""
+    s0, sf, sc = init.scale, final.scale, canon.scale
+    t0, tf, tc = init.translation, final.translation, canon.translation
+    R0, Rf, Rc = init.rotation, final.rotation, canon.rotation
+
+    s_delta = sf / s0
+    RcT = Rc.transpose(-1, -2)
+    R0T = R0.transpose(-1, -2)
+    R_delta = (RcT @ Rf) @ (R0T @ Rc)
+
+    t = tf - tc - s_delta[..., None, None] * ((Rf @ R0T) @ (t0 - tc))
+    t_delta = (RcT @ t) / sc[..., None, None]
+    return Pose(rotation=R_delta, translation=t_delta, scale=s_delta)
+
 
 # ---------------------------------------------------------------------------
 # evaluation & perturbation

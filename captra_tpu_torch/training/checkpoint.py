@@ -1,20 +1,25 @@
 """Checkpoint files of the JAX package, read and written without JAX (the
-reading half of `captra_tpu/training/checkpoint.py`, and its pickle writer).
+counterpart of `captra_tpu/training/checkpoint.py`, pickle format).
 
 A checkpoint is `<exp>/ckpt/model_%04d`: a pickle of {params, batch_stats,
 opt_state, step, epoch[, extra]}, the variable trees as nested dicts of
-numpy arrays in flax names.  `opt_state` holds optax `NamedTuple`s, so a
-plain `pickle.load` would import optax and JAX; `load_checkpoint` reads
-with `_CheckpointUnpickler`, which maps every optax / JAX / flax / orbax
-class to an inert stub, allows exactly the names that numpy's array, scalar
-and dtype pickles use and refuses every other name (`numpy.memmap` too,
-which could create a file).  The trees it returns feed
-`convert.coordnet_from_flax` / `rotnet_from_flax`, and
-`convert.flax_variables` makes them from a port module, so the port writes
-checkpoints that the JAX package reads.
+numpy arrays in flax names.  A JAX checkpoint's `opt_state` holds optax
+`NamedTuple`s, so a plain `pickle.load` would import optax and JAX;
+`load_checkpoint` reads with `_CheckpointUnpickler`, which maps every optax
+/ JAX / flax / orbax class to an inert stub, allows exactly the names that
+numpy's array, scalar and dtype pickles use and refuses every other name
+(`numpy.memmap` too, which could create a file).
 
-The orbax format (a directory) raises `NotImplementedError`; restoring an
-optimizer state waits for the training port.
+`save_checkpoint` writes {params, batch_stats} trees; `save_train_state`
+writes a port training state: its net through `convert.flax_variables`,
+its optimizer state in the port's own plain layout, numpy trees in flax
+names ({"count", "mu", "nu"} for Adam, `convert.optimizer_tree`).  `restore_state` reads that layout and a JAX
+checkpoint's optax state (`convert.restore_optimizer`) and falls back to
+fresh moments on any structure it cannot map, as the JAX function does;
+the JAX `restore_state` reads a port checkpoint's params and statistics
+and falls back to fresh moments the same way.
+
+The orbax format (a directory) raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -154,3 +159,34 @@ def save_checkpoint(ckpt_dir: str, epoch: int, variables: Mapping,
         pickle.dump(payload, f)
     os.replace(path + ".tmp", path)
     return path
+
+
+def save_train_state(ckpt_dir: str, epoch: int, state) -> str:
+    """`save_checkpoint` of a `trainer.TrainState`: its net's variables,
+    its optimizer state in the port's layout (`convert.optimizer_tree`)
+    and its step."""
+    from captra_tpu_torch.training.convert import (
+        flax_variables, optimizer_tree,
+    )
+    return save_checkpoint(ckpt_dir, epoch, flax_variables(state.module),
+                           optimizer_tree(state), state.step)
+
+
+def restore_state(ckpt: dict, state):
+    """Load a checkpoint payload into a `trainer.TrainState` (in place, and
+    returned): params and batch statistics (every one must match), the
+    step, and the optimizer state (the state's own optimizer, Adam or SGD)
+    from the port's layout or a JAX checkpoint's optax state; a structure
+    that does not map leaves the state's own (fresh) moments."""
+    from captra_tpu_torch.training.convert import (
+        load_flax_variables, restore_optimizer,
+    )
+    load_flax_variables(state.module, {
+        "params": _numpy_tree(ckpt["params"]),
+        "batch_stats": _numpy_tree(ckpt.get("batch_stats", {}))})
+    try:
+        state.opt_state = restore_optimizer(ckpt.get("opt_state"), state)
+    except Exception:  # noqa: BLE001 - any mismatch: fresh moments
+        pass
+    state.step = int(ckpt.get("step", 0))
+    return state

@@ -15,8 +15,10 @@ walk:
 
 `flax_variables` is the inverse: a port module back to the flax tree, so
 the port writes checkpoints in the JAX package's layout
-(`training/checkpoint.py`).  Loading the reference's torch `.pt`
-checkpoints is a later slice.
+(`training/checkpoint.py`).  `optimizer_tree` / `restore_optimizer` map a
+training state's optimizer moments to and from flax-named trees (the port's
+checkpoint layout) and read a JAX checkpoint's optax state.  Loading the
+reference's torch `.pt` checkpoints is a later slice.
 """
 from __future__ import annotations
 
@@ -89,14 +91,21 @@ def flax_variables(module: nn.Module) -> dict:
     """The flax variable tree {"params", "batch_stats"} of a port module, as
     nested dicts of float32 numpy arrays (the inverse of `flax_state_dict`):
     Linear weights transposed back to kernels, norm weights named scale,
-    `heads.{p}` stacked on a leading [P] axis."""
+    `heads.{p}` stacked on a leading [P] axis; a trained module's running
+    statistics are its batch_stats."""
+    return _flax_tree(module.state_dict().items())
+
+
+def _flax_tree(items) -> dict:
+    """{"params", "batch_stats"} from (port state_dict key, tensor) pairs."""
     tree: dict = {"params": {}, "batch_stats": {}}
     stacked: dict = {}
-    for key, value in module.state_dict().items():
+    for key, value in items:
         *mods, leaf = key.split(".")
         if leaf == "num_batches_tracked":
             continue
-        value = value.detach().cpu().float().numpy()
+        # a copy: `.numpy()` of a CPU tensor shares its memory
+        value = np.array(value.detach().cpu().float().numpy())
         if leaf in ("running_mean", "running_var"):
             collection, name = "batch_stats", leaf[len("running_"):]
         elif leaf == "weight":
@@ -114,6 +123,93 @@ def flax_variables(module: nn.Module) -> dict:
     for path, parts in stacked.items():
         _put(tree, path, np.stack([parts[p] for p in range(len(parts))]))
     return tree
+
+
+# ---------------------------------------------------------------------------
+# optimizer state
+# ---------------------------------------------------------------------------
+
+# the flat moment buffers of each optimizer, in the order of their optax
+# state's fields after `count` (ScaleByAdamState(count, mu, nu),
+# TraceState(trace), which has no count)
+_MOMENTS = {"adam": ("mu", "nu"), "sgd": ("trace",)}
+_OPTAX_STATE = {"adam": "ScaleByAdamState", "sgd": "TraceState"}
+
+
+def optimizer_tree(state) -> dict:
+    """A `training.trainer.TrainState`'s optimizer state in the port's
+    checkpoint layout: {"count": int32, "mu": tree, "nu": tree} (Adam) or
+    {"count", "trace": tree} (SGD), each tree the params' flax tree of
+    float32 numpy arrays."""
+    out = {"count": np.asarray(state.opt_state["count"], np.int32)}
+    for name in state.opt_state:
+        if name != "count":
+            out[name] = flat_tree(state, state.opt_state[name])
+    return out
+
+
+def flat_tree(state, flat: torch.Tensor) -> dict:
+    """A buffer of a TrainState's flat parameter layout (its params, grads
+    or a moment) as the params' flax tree of float32 numpy arrays."""
+    return _flax_tree(state.param_views(flat).items())["params"]
+
+
+def _find_optax_state(tree, class_name: str):
+    """The first stub of optax class `class_name` in a JAX checkpoint's
+    opt_state (tuples, lists, dicts and stubs' arguments searched depth
+    first), or None."""
+    if type(tree).__name__ == class_name and hasattr(tree, "args"):
+        return tree
+    children = (tree.args if hasattr(tree, "args") and hasattr(tree, "kwargs")
+                else tree.values() if isinstance(tree, Mapping)
+                else tree if isinstance(tree, (tuple, list)) else ())
+    for child in children:
+        hit = _find_optax_state(child, class_name)
+        if hit is not None:
+            return hit
+    return None
+
+
+def restore_optimizer(opt_state, state) -> dict:
+    """The optimizer state of `state` (a TrainState; Adam or SGD, as its
+    own state's moments say) rebuilt from a checkpoint's `opt_state`: the
+    port's layout (`optimizer_tree`), or a JAX checkpoint's optax chain
+    (stubs of `checkpoint.load_checkpoint`: ScaleByAdamState's count / mu
+    / nu, or the SGD TraceState's trace and ScaleByScheduleState's count).
+    Raises ValueError on any structure it cannot map."""
+    kind = "adam" if "mu" in state.opt_state else "sgd"
+    names = _MOMENTS[kind]
+    if isinstance(opt_state, Mapping):
+        count, trees = opt_state["count"], [opt_state[n] for n in names]
+    else:
+        stub = _find_optax_state(opt_state, _OPTAX_STATE[kind])
+        if stub is None:
+            raise ValueError(f"no {_OPTAX_STATE[kind]} in the optimizer "
+                             "state")
+        if kind == "adam":
+            count, *trees = stub.args
+        else:
+            trees = list(stub.args)
+            sched = _find_optax_state(opt_state, "ScaleByScheduleState")
+            if sched is None:
+                raise ValueError("no ScaleByScheduleState in the optimizer "
+                                 "state")
+            count = sched.args[0]
+    out = {"count": int(np.asarray(count))}
+    for name, tree in zip(names, trees):
+        tensors = flax_state_dict({"params": tree})
+        flat = torch.zeros_like(state.params)
+        views = state.param_views(flat)
+        if sorted(tensors) != sorted(views):
+            raise ValueError(f"optimizer {name} does not match the "
+                             "parameters")
+        for key, value in tensors.items():
+            if tuple(value.shape) != tuple(views[key].shape):
+                raise ValueError(f"optimizer {name}: {key} has shape "
+                                 f"{tuple(value.shape)}")
+            views[key].copy_(value)
+        out[name] = flat
+    return out
 
 
 def _put(tree: dict, path: tuple, value) -> None:

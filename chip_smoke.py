@@ -96,7 +96,30 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 against the plain FPS.  Reader seconds a frame cold (the
                 CLI's reads, SAPIEN writing its cache) and warm, ms a step
                 and frames/s as the CLI prints them.
-  8. summary -- JSON lines of the paths and of the kernels, then, as the
+  8. train   -- training at the configs' full width (SAPIEN laptop,
+                batch 12, 4096 points, `pointnet2_camera`; seeded nets, a
+                fixed `make_frame_batch` batch, draws from a seeded card
+                generator) in the runs of TRAIN_RUNS: the CoordNet (sa1 ->
+                fps_cuda_batched [12,4096]->512), the RotNet (24 clouds),
+                the NOCS bottle's CoordNet (symmetric: the pairwise NOCS
+                loss, the 2D fit) and the CoordNet in bfloat16.  Each run
+                (`train_run`): one step against the same step from a copy
+                of the state with the plain FPS on the card, under torch's
+                deterministic algorithms (losses, gradients, statistics
+                equal bit for bit), the kernels held on that step's FPS
+                inputs, a warm-up, the host syncs of a
+                step (CUDA's sync debug mode), then TRAIN_STEPS timed steps
+                with the counters zeroed around them: FPS launches a step
+                as `route` predicts, ms a step (median; a sync after each
+                step), samples/s, peak memory, the losses finite and
+                falling.  Then the CLIs: `cli.train.main --synthetic_data
+                --batch_size 4` (sa1 -> fps_cuda_wide) for the CoordNet, a
+                resume for a second epoch, the RotNet, `cli.track.main`
+                from the two trained experiments and `cli.finetune.main`
+                for one epoch on NOCS fixtures written from the seed; each
+                CLI's FPS launches as `route` predicts, and the kernels
+                held on the first CoordNet run's FPS inputs.
+  9. summary -- JSON lines of the paths and of the kernels, then, as the
                 last line, {"ok": true, "device": {...}}.
 
 --profile DIR adds a torch.profiler window over a few tracked frames to each
@@ -474,7 +497,7 @@ def _check_case(fps, results, fn, xyz, npoint, where):
 
 
 def check_video(fps, results, wrappers, clouds, npoint, run, frames,
-                where, path: str = "otf") -> None:
+                where, path: str = "otf", unit: str = "frame") -> None:
     """Hold each wrapper against the plain FPS on every input `clouds` that
     one FPS call of a tracked video of `frames` frames was given, and time
     it over the whole video; the case's ms, plain ms, bound and sweeps are
@@ -494,7 +517,7 @@ def check_video(fps, results, wrappers, clouds, npoint, run, frames,
     sweeps = sum(map(sum, picks))
     flat = sorted(p for call in picks for p in call)
     log(f"{path} {run} [{B},{N}]->{npoint}, {calls} calls in {F} tracked "
-        f"frames: picks before the first forced 0, per call summed over the "
+        f"{unit}s: picks before the first forced 0, per call summed over the "
         f"clouds {[sum(p) for p in picks]}; per cloud min {flat[0]}, median "
         f"{flat[len(flat) // 2]}, max {flat[-1]}")
     bound_ms, bound_by = fps_bound(B * calls, N, npoint, sweeps)
@@ -522,10 +545,10 @@ def check_video(fps, results, wrappers, clouds, npoint, run, frames,
                 fps, clouds, wants, f"[{B},{N}]->{npoint} ({path} {run}, "
                 f"{calls} tracked frames)")
         log(f"kernel {kernel} [{B},{N}]->{npoint} ({where}, {path} {run}): "
-            f"equal on all {calls} calls; {ms:.4f} ms a frame "
+            f"equal on all {calls} calls; {ms:.4f} ms a {unit} "
             f"({ms * 1e3 * F / calls / (npoint - 1):.3f} us a pick), plain "
             f"(stacked) {plain_ms:.3f} ms, bound {bound_ms / F:.5f} ms "
-            f"({bound_by}, {sweeps / F:.0f} sweeps a frame the data needs)")
+            f"({bound_by}, {sweeps / F:.0f} sweeps a {unit} the data needs)")
 
 
 @contextlib.contextmanager
@@ -1757,6 +1780,360 @@ def phase_data(kernels: dict) -> dict:
     return out
 
 
+# the train phase: (name, training config, `get_config` overrides) at the
+# configs' full width (SAPIEN laptop, batch 12, 4096 points,
+# pointnet2_camera); the bottle is the NOCS bottle (symmetric: the pairwise
+# NOCS loss and the 2D fit), and the bf16 run the JAX bench's dtype
+TRAIN_RUNS = (
+    ("coord_laptop", "config_coordnet.yml", {}),
+    ("rot_laptop", "config_rotnet.yml", {}),
+    ("coord_bottle", "config_coordnet.yml",
+     {"obj_config": "obj_info_nocs.yml", "obj_category": "1"}),
+    ("coord_laptop_bf16", "config_coordnet.yml",
+     {"network/compute_dtype": "bfloat16"}),
+)
+TRAIN_STEPS = 30            # timed steps a run, after the warm-up
+TRAIN_WARMUP = 2
+TRAIN_WHERE = "a train step's FPS inputs, ms a step"
+TRAIN_CLI_BATCH = 4         # sa1 -> fps_cuda_wide [4,4096]->512
+TRAIN_CLI_STEPS = 3         # synthetic steps an epoch of the CLI runs
+TRAIN_CLI_WHERE = "the train CLI's FPS inputs (B=4), ms a step"
+FINETUNE_FRAMES = {"train": 8, "real_train": 8, "real_test": 4}
+
+
+def train_launches(cfg, B: int) -> dict:
+    """FPS launches a train step: sa1 and sa2 of the trained net, on B
+    clouds (CoordNet) or B x P (RotNet)."""
+    from collections import Counter
+    clouds = B * (cfg.obj.num_parts if cfg.network.type == "rot" else 1)
+    return dict(Counter(fps_kernel(clouds, n) for n in
+                        (cfg.num_points, cfg.pointnet.sa1.npoint)))
+
+
+def _host_syncs(fn) -> list:
+    """The host synchronisations `fn()` makes, as CUDA's sync debug mode
+    reports them (one message each)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message) for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def steps_equal(a, b) -> bool:
+    """Two train states after a step hold the same gradients and running
+    statistics, bit for bit (the flat gradient buffer, every float
+    buffer)."""
+    return torch.equal(a.grads, b.grads) and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(
+            a.module.named_buffers(), b.module.named_buffers())
+        if x.is_floating_point())
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(alerts: set):
+    """torch's deterministic algorithms for the comparison steps (the
+    gather's backward then adds in a fixed order); an op without one only
+    warns, and the warnings' first lines are added to `alerts`."""
+    import warnings
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+    alerts.update(str(w.message).splitlines()[0] for w in caught)
+
+
+def compare_train_step(trainer, state, batch, draws, name):
+    """One step of `state` with the kernels and of a copy with the plain
+    FPS on the card, the same batch and draws, under torch's deterministic
+    algorithms: both take the same FPS indices, so the losses, the
+    gradients and the running statistics are equal bit for bit.  Returns
+    the kernels' recorded FPS inputs and the ops torch reported without a
+    deterministic version."""
+    plain = trainer.copy_state(state)
+    calls, alerts = {}, set()
+    with deterministic_algorithms(alerts):
+        with recording_fps(calls):
+            _, got, _ = trainer.train_step(state, batch, draws=draws)
+        with plain_fps_on_card():
+            _, want, _ = trainer.train_step(plain, batch, draws=draws)
+    equal = sorted(got) == sorted(want) and all(
+        torch.equal(got[k], v) for k, v in want.items()) and steps_equal(
+        state, plain)
+    log(f"train {name}: the step with the kernels against the plain FPS: "
+        f"losses, gradients and running statistics "
+        f"{'equal' if equal else 'DIFFER'}; without a deterministic "
+        f"version: {sorted(alerts) or 'none'}")
+    if not equal:
+        raise AssertionError(f"train {name}: the kernels' step differs from "
+                             "the plain FPS's")
+    return calls, sorted(alerts)
+
+
+def train_run(name: str, config: str, overrides: dict, dev, kernels: dict
+              ) -> dict:
+    """One TRAIN_RUNS run on a fixed batch from SEED: the kernels' step
+    against the plain FPS's, the kernels held on its FPS inputs, a warm-up,
+    then TRAIN_STEPS timed steps (counters zeroed just before, read just
+    after; a sync after each step)."""
+    from captra_tpu_torch.config import get_config
+    from captra_tpu_torch.data.synthetic import make_frame_batch
+    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.training.trainer import Trainer, to_device
+    cfg = get_config(config, overrides)
+    B = cfg.batch_size
+    trainer = Trainer(cfg, steps_per_epoch=50, device=dev)
+    state = trainer.init_state(
+        generator=torch.Generator().manual_seed(SEED))
+    batch = to_device(make_frame_batch(SEED, cfg.obj, batch=B,
+                                       num_points=cfg.num_points), dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    dtype = cfg.network.compute_dtype
+    calls, alerts = compare_train_step(trainer, state, batch,
+                                       trainer.draw(batch, gen), name)
+    for (n, npoint), clouds in sorted(calls.items()):
+        check_video(fps, kernels, (fps.route(clouds[0].shape[0], n),),
+                    clouds, npoint, name, 1, TRAIN_WHERE, path="train",
+                    unit="step")
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step(state, batch, generator=gen)
+    sync(dev)
+    sync_msgs = _host_syncs(lambda: trainer.train_step(state, batch,
+                                                       generator=gen))
+    syncs = len(sync_msgs)
+    for msg in sorted(set(sync_msgs)):
+        log(f"train {name}: host sync in a step: {msg}")
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fps.reset_launch_counts()
+    steps_ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        _, loss, _ = trainer.train_step(state, batch, generator=gen)
+        sync(dev)
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss["total_loss"])
+    launches = dict(fps.launch_counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {k: v * TRAIN_STEPS for k, v in train_launches(cfg, B).items()}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"train {name}: FPS launches {launches}, "
+                             f"expected {want}")
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train {name}: non-finite losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        raise AssertionError(f"train {name}: the loss did not fall on the "
+                             f"fixed batch ({first} -> {last})")
+    ms = float(np.median(steps_ms))
+    run = dict(config=config, overrides=overrides, B=B, dtype=dtype,
+               clouds=B * (cfg.obj.num_parts if cfg.network.type == "rot"
+                           else 1),
+               ms_per_step=ms, ms_per_step_min=min(steps_ms),
+               ms_per_step_max=max(steps_ms), samples_per_s=B * 1e3 / ms,
+               peak_bytes=peak, launches=launches,
+               launches_per_step={k: v / TRAIN_STEPS
+                                  for k, v in launches.items() if v},
+               host_syncs_per_step=syncs, loss_first=losses[0],
+               loss_last=losses[-1], loss_first5=float(first),
+               loss_last5=float(last), plain_fps_equal=True,
+               nondeterministic_ops=alerts)
+    log(f"train {name}: {cfg.obj.name} {cfg.network.type} {dtype}, B={B} "
+        f"({run['clouds']} clouds) x {cfg.num_points} points: {ms:.2f} ms a "
+        f"step (median of {TRAIN_STEPS}; min {min(steps_ms):.2f}, max "
+        f"{max(steps_ms):.2f}), {run['samples_per_s']:.1f} samples/s, peak "
+        f"{peak / 2**30:.2f} GiB, FPS launches a step "
+        f"{run['launches_per_step']}, {syncs} host syncs a step; total loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 5 "
+        f"{first:.4f}, of the last 5 {last:.4f})")
+    return run
+
+
+def write_nocs_splits(root: str, rng) -> None:
+    """NOCS bottle frames of the splits of FINETUNE_FRAMES (one track each,
+    `render/<split>/1/<instance>/0000/data/*.npz`): 5000 points a frame,
+    3/4 on the instance's box posed at a random rotation and scale, the
+    rest background, and the model corners."""
+    os.makedirs(os.path.join(root, "model_corners"), exist_ok=True)
+    np.save(os.path.join(root, "model_corners",
+                         f"{DATA_NOCS_INSTANCE}.npy"),
+            np.array([[-0.05, -0.12, -0.05], [0.05, 0.12, 0.05]]))
+    for split, frames in FINETUNE_FRAMES.items():
+        data = os.path.join(root, "render", split, "1", DATA_NOCS_INSTANCE,
+                            "0000", "data")
+        os.makedirs(data, exist_ok=True)
+        for f in range(frames):
+            R = np.linalg.qr(rng.randn(3, 3))[0]
+            R[:, 0] *= np.sign(np.linalg.det(R))
+            t = rng.randn(3, 1) * 0.05 + np.array([[0.0], [0.0], [0.8]])
+            s = rng.uniform(0.2, 0.3)
+            npcs = (rng.rand(5000, 3) - 0.5) * np.array([0.1, 0.24, 0.1])
+            seg = (rng.rand(5000) < 0.75).astype(np.int64)
+            pts = np.where(seg[:, None] == 1, s * (npcs @ R.T) + t.T,
+                           rng.randn(5000, 3) * 0.2 + t.T)
+            np.savez(os.path.join(data, f"{f:04d}.npz"), all_dict={
+                "points": pts.astype(np.float32), "labels": seg,
+                "pose": {"rotation": R.astype(np.float32),
+                         "translation": t.astype(np.float32),
+                         "scale": np.float32(s)},
+                "path": ""})
+
+
+def phase_train(kernels: dict) -> dict:
+    """Training on the card: the runs of TRAIN_RUNS (`train_run`), then the
+    CLIs as a user runs them: `cli.train.main --synthetic_data` at batch
+    TRAIN_CLI_BATCH for the CoordNet (one epoch, then a resume for a second)
+    and the RotNet (one epoch), `cli.track.main` from the two trained
+    experiments, and `cli.finetune.main` for one epoch on NOCS fixtures
+    written from SEED; counters zeroed around each CLI run."""
+    from captra_tpu_torch.cli import finetune as finetune_cli
+    from captra_tpu_torch.cli import track as track_cli
+    from captra_tpu_torch.cli import train as train_cli
+    from captra_tpu_torch.config import get_config
+    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.training import checkpoint
+
+    dev = torch.device("cuda")
+    out = {"runs": {}, "cli": {}}
+    if not _host_syncs(lambda: torch.ones(1, device=dev).sum().item()):
+        raise AssertionError("CUDA's sync debug mode reported no sync for "
+                             "an .item(): the host-sync count would read 0")
+    for name, config, overrides in TRAIN_RUNS:
+        out["runs"][name] = train_run(name, config, overrides, dev, kernels)
+        torch.cuda.empty_cache()
+
+    def short_epoch(cfg, epoch, steps=50):
+        return iter([train_cli.make_frame_batch(
+            epoch * TRAIN_CLI_STEPS + i, cfg.obj, batch=cfg.batch_size,
+            num_points=cfg.num_points) for i in range(TRAIN_CLI_STEPS)])
+
+    routed = train_cli.synthetic_epoch
+    train_cli.synthetic_epoch = short_epoch
+    cli_calls = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="captra_train_") as tmp:
+            coord, rot = (os.path.join(tmp, n) for n in ("coord", "rot"))
+            common = ["--synthetic_data", "--batch_size",
+                      str(TRAIN_CLI_BATCH)]
+            plan = (("coord_epoch0", coord, "config_coordnet.yml", 1),
+                    ("coord_resume", coord, "config_coordnet.yml", 2),
+                    ("rot_epoch0", rot, "config_rotnet.yml", 1))
+            for label, exp, config, epochs in plan:
+                argv = ["--config", config, "--experiment_dir", exp,
+                        "--total_epoch", str(epochs), *common]
+                cfg = get_config(config, {"batch_size": TRAIN_CLI_BATCH})
+                sync(dev)
+                fps.reset_launch_counts()
+                with recording_fps(cli_calls if label == "coord_epoch0"
+                                   else {}):
+                    text, state, seconds = _printed(train_cli.main, argv,
+                                                    device=dev)
+                sync(dev)
+                launches = {k: v for k, v in fps.launch_counts.items() if v}
+                want = {k: v * TRAIN_CLI_STEPS for k, v in
+                        train_launches(cfg, TRAIN_CLI_BATCH).items()}
+                if launches != want or state.step != epochs * \
+                        TRAIN_CLI_STEPS:
+                    raise AssertionError(f"train cli {label}: launches "
+                                         f"{launches} (expected {want}), "
+                                         f"step {state.step}")
+                log_text = open(os.path.join(exp, "log", "log.txt")).read()
+                epoch = epochs - 1
+                total = float(log_text.split(
+                    f"Train epoch {epoch} total_loss is ")[1].split()[0])
+                if not np.isfinite(total) or (label == "coord_resume" and
+                                              "resumed from" not in log_text):
+                    raise AssertionError(f"train cli {label}: {log_text}")
+                payload = checkpoint.load_checkpoint(os.path.join(
+                    exp, "ckpt", f"model_{epoch:04d}"))
+                out["cli"][label] = dict(seconds=seconds, launches=launches,
+                                         step=payload["step"],
+                                         total_loss=total)
+                log(f"train cli {label}: {config} --batch_size "
+                    f"{TRAIN_CLI_BATCH}, {TRAIN_CLI_STEPS} steps an epoch, "
+                    f"epoch {epoch} total_loss {total:.4f}, checkpoint "
+                    f"step {payload['step']}, FPS launches {launches}, "
+                    f"{seconds:.2f} s")
+            for (n, npoint), clouds in sorted(cli_calls.items()):
+                check_video(fps, kernels, (fps.route(clouds[0].shape[0], n),),
+                            clouds, npoint, "cli coord_epoch0",
+                            TRAIN_CLI_STEPS, TRAIN_CLI_WHERE, path="train",
+                            unit="step")
+            track_argv = ["--experiment_dir", rot, "--coord_exp/dir", coord,
+                          "--synthetic_data", "--save"]
+            sync(dev)
+            fps.reset_launch_counts()
+            text, avgs, seconds = _printed(track_cli.main, track_argv,
+                                           device=dev)
+            launches = {k: v for k, v in fps.launch_counts.items() if v}
+            tcfg = track_cli.parse(track_argv)[1]
+            want = {}
+            for _, frames, b, _, _ in _BATCH_LINE.findall(text):
+                steps = int(frames) + track_cli.WARMUP_FRAMES - 1
+                for k, v in predicted_launches(tcfg, int(b)).items():
+                    want[k] = want.get(k, 0) + v * steps
+            files = os.listdir(os.path.join(rot, "results", "data"))
+            if len(files) != CLI_TRAJECTORIES or not all(
+                    np.isfinite(v).all() for v in avgs.values()):
+                raise AssertionError(f"train cli track: {text}")
+            if not want or launches != want:
+                raise AssertionError(f"train cli track: FPS launches "
+                                     f"{launches}, expected {want}")
+            out["cli"]["track"] = dict(seconds=seconds, launches=launches,
+                                       avg={k: float(np.mean(v))
+                                            for k, v in avgs.items()})
+            log(f"train cli track: the trained CoordNet and RotNet, "
+                f"{len(files)} result pickles, {seconds:.2f} s, FPS "
+                f"launches {launches}; "
+                + next(ln for ln in text.splitlines()
+                       if ln.startswith("AVG: ")))
+
+            root = os.path.join(tmp, "nocs")
+            write_nocs_splits(root, np.random.RandomState(SEED))
+            exp = os.path.join(tmp, "finetune")
+            sync(dev)
+            fps.reset_launch_counts()
+            text, state, seconds = _printed(finetune_cli.main, [
+                "--config", "config_coordnet.yml", "--experiment_dir", exp,
+                "--obj_config", "obj_info_nocs.yml", "--obj_category", "1",
+                "--basepath", root, "--batch_size",
+                str(TRAIN_CLI_BATCH), "--total_epoch", "1"], device=dev)
+            launches = {k: v for k, v in fps.launch_counts.items() if v}
+            log_text = open(os.path.join(exp, "log", "log.txt")).read()
+            want_steps = 2 * FINETUNE_FRAMES["real_train"] // TRAIN_CLI_BATCH
+            # the train steps and the real_test evaluation's steps
+            evals = FINETUNE_FRAMES["real_test"] // TRAIN_CLI_BATCH
+            want = {k: v * (want_steps + evals) for k, v in train_launches(
+                get_config("config_coordnet.yml",
+                           {"batch_size": TRAIN_CLI_BATCH}),
+                TRAIN_CLI_BATCH).items()}
+            if state.step != want_steps or not all(
+                    f"{tag} epoch 0 total_loss is " in log_text
+                    for tag in ("Syn_Train", "Real_Train", "Test")):
+                raise AssertionError(f"train cli finetune: step "
+                                     f"{state.step}, log {log_text}")
+            if launches != want:
+                raise AssertionError(f"train cli finetune: FPS launches "
+                                     f"{launches}, expected {want}")
+            out["cli"]["finetune"] = dict(seconds=seconds, step=state.step,
+                                          launches=launches)
+            log(f"train cli finetune: NOCS bottle, {state.step} steps "
+                f"(synthetic and real) and the real_test evaluation in "
+                f"{seconds:.2f} s, FPS launches {launches}")
+    finally:
+        train_cli.synthetic_epoch = routed
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -1791,6 +2168,8 @@ def main() -> int:
     lap("cli")
     data = phase_data(kernels=kernels)
     lap("data")
+    train = phase_train(kernels=kernels)
+    lap("train")
 
     line = []
     for name, cases in kernels.items():
@@ -1806,7 +2185,11 @@ def main() -> int:
                    **{f"cli_{r}": v["launches"][name]
                       for r, v in cli.items()},
                    **{f"data_{r}": v["launches"][name]
-                      for r, v in data["runs"].items()}}
+                      for r, v in data["runs"].items()},
+                   **{f"train_{r}": v["launches"].get(name, 0)
+                      for r, v in train["runs"].items()},
+                   **{f"train_cli_{r}": v["launches"].get(name, 0)
+                      for r, v in train["cli"].items()}}
         line.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
@@ -1824,6 +2207,7 @@ def main() -> int:
     log(json.dumps({"init_search": init}))
     log(json.dumps({"cli": cli}))
     log(json.dumps({"data": data}))
+    log(json.dumps({"train": train}))
     log(json.dumps({"seconds": seconds}))
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -399,3 +399,68 @@ def test_otf_frame_from_depth_on_the_card_equals_plain_fps(card):
         pointops.farthest_point_sample_indices = routed
     for k in ("points", "labels", "nocs"):
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("config", ["config_coordnet.yml",
+                                    "config_rotnet.yml"])
+def test_full_width_train_step_matches_plain_fps(card, config, monkeypatch):
+    """One train step at the config's full width (SAPIEN laptop, batch 12,
+    4096 points; sa1 -> fps_cuda_batched on 12 or 24 clouds) against the
+    same step, from a copy of the same state, with the plain FPS on the
+    card, under torch's deterministic algorithms.  Both take the same FPS
+    indices, so the losses, the gradients and the running statistics are
+    equal bit for bit."""
+    from captra_tpu_torch.config import get_config
+    from captra_tpu_torch.data.synthetic import make_frame_batch
+    from captra_tpu_torch.ops import pointops
+    from captra_tpu_torch.training.trainer import Trainer
+    cfg = get_config(config)
+    trainer = Trainer(cfg, 50, device=card)
+    state = trainer.init_state(generator=torch.Generator().manual_seed(0))
+    twin = trainer.copy_state(state)
+    batch = make_frame_batch(0, cfg.obj, batch=cfg.batch_size,
+                             num_points=cfg.num_points)
+    draws = trainer.draw(batch, torch.Generator(card).manual_seed(1))
+    fps.reset_launch_counts()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, losses, _ = trainer.train_step(state, batch, draws=draws)
+        torch.cuda.synchronize()
+        assert fps.launch_counts["fps_cuda_batched"] == 2
+        assert sum(fps.launch_counts.values()) == 2
+        monkeypatch.setattr(pointops, "farthest_point_sample_indices",
+                            fps.fps_plain)
+        _, plain, _ = trainer.train_step(twin, batch, draws=draws)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert sorted(losses) == sorted(plain)
+    for k, v in plain.items():
+        assert torch.equal(losses[k], v), k
+    assert torch.equal(state.grads, twin.grads)
+    for (name, a), (_, b) in zip(state.module.named_buffers(),
+                                 twin.module.named_buffers()):
+        if a.is_floating_point():
+            assert torch.equal(a, b), name
+
+
+def test_device_pose_batch_on_the_card_matches_the_cpu(card):
+    from captra_tpu_torch.config import get_config
+    from captra_tpu_torch.data.synthetic import (
+        device_pose_batch, draw_pose_batch, geometry_pool,
+    )
+    cfg = get_config("config_coordnet.yml")
+    pool = geometry_pool(0, cfg.obj, count=12, num_points=4096)
+    draws = draw_pose_batch(12, 4096, cfg.obj.num_parts,
+                            torch.Generator(card).manual_seed(0))
+    args = [torch.from_numpy(pool[k]) for k in ("npcs", "labels",
+                                                  "corners")]
+    got = device_pose_batch(*[a.to(card) for a in args], cfg.obj,
+                            draws=draws)
+    want = device_pose_batch(*args, cfg.obj,
+                             draws={k: v.cpu() for k, v in draws.items()})
+    assert got["points"].is_cuda
+    for k in ("points", "nocs", "corners"):
+        assert float((got[k].cpu() - want[k]).abs().max()) <= 1e-6, k
+    for f in ("rotation", "translation", "scale"):
+        assert float((getattr(got["pose"], f).cpu()
+                      - getattr(want["pose"], f)).abs().max()) <= 1e-6, f

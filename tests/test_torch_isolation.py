@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from captra_tpu_torch.cli import evaluate as evaluate_cli
+from captra_tpu_torch.cli import finetune as finetune_cli
 from captra_tpu_torch.cli import track as track_cli
+from captra_tpu_torch.cli import train as train_cli
 from captra_tpu_torch.config import get_config, schema
 from captra_tpu_torch.config.presets import NOCS_BOTTLE_OVERRIDES, nocs_bottle
 from captra_tpu_torch.eval.evaluator import evaluate_results_dir
@@ -25,6 +27,7 @@ from captra_tpu_torch.tracking.tracker import (
     track_trajectory,
 )
 from captra_tpu_torch.training.convert import coordnet_from_flax
+from captra_tpu_torch.training.trainer import Trainer
 from tests.torch_port_helpers import tiny_config
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -72,6 +75,29 @@ def test_sources_import_no_jax():
         assert hit is None, f"{path} imports {hit.group(1)}"
 
 
+@pytest.mark.parametrize("module", [
+    "captra_tpu_torch.cli.train", "captra_tpu_torch.cli.finetune",
+    "captra_tpu_torch.training.trainer", "captra_tpu_torch.models.losses"])
+def test_training_entry_points_import_with_jax_blocked(module):
+    """The training modules import in a process where importing jax,
+    flax, optax, orbax or captra_tpu fails."""
+    code = (
+        "import sys, importlib.abc\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'flax', 'optax', 'orbax',\n"
+        "                                  'captra_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"import {module}\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_forbidden_pattern_catches_imports():
     for line in ("import jax", "from jax import numpy", "import flax.linen",
                  "from captra_tpu.ops import fps", "  import captra_tpu",
@@ -103,6 +129,10 @@ def _entry_points(cfg):
         "evaluate_results_dir": lambda: evaluate_results_dir(
             "results", cfg.obj),
         "build_step": lambda: track_cli.build_step(cfg, {}, {}),
+        "Trainer": lambda: Trainer(cfg.replace(network=dataclasses.replace(
+            cfg.network, type="canon_coord"))),
+        "cli.train.main": lambda: train_cli.main(["--synthetic_data"]),
+        "cli.finetune.main": lambda: finetune_cli.main([]),
     }
 
 

@@ -205,3 +205,57 @@ def test_intrinsics_inverse_equals_jax():
             preprocess.intrinsics_inverse(torch.from_numpy(
                 np.asarray(K, np.float32))).numpy(),
             np.asarray(jnp.linalg.inv(K)))
+
+
+@pytest.mark.parametrize("shuffle,start_batch,seed", [(True, 0, 0),
+                                                      (True, 1, 3),
+                                                      (False, 0, 1)])
+def test_single_frame_batches_equal_jax(tmp_path, shuffle, start_batch,
+                                        seed):
+    """The frame order and each batch's point shuffle for the same seed
+    (each package reads its own fresh dataset, whose crop draws follow the
+    read order), the tail dropped."""
+    roots = _roots(tmp_path, _write_fake_nocs)
+    tds, jds = _nocs_pair(roots)
+    got = list(loader.single_frame_batches(tds, 2, shuffle=shuffle,
+                                           seed=seed,
+                                           start_batch=start_batch))
+    want = list(jloader.single_frame_batches(jds, 2, shuffle=shuffle,
+                                             seed=seed,
+                                             start_batch=start_batch))
+    assert len(got) == len(want) == len(tds) // 2 - start_batch
+    for g, w in zip(got, want):
+        _assert_batch_equal(g, w)
+    with pytest.raises(ValueError, match="rng"):
+        loader.collate_frames([tds[0]], shuffle_points=True)
+
+
+def test_prefetch_keeps_order_raises_and_stops_on_abandon():
+    import threading
+    assert list(loader.prefetch(iter(range(7)), size=2)) == list(range(7))
+
+    def failing():
+        yield 1
+        raise KeyError("worker")
+
+    it = loader.prefetch(failing())
+    assert next(it) == 1
+    with pytest.raises(KeyError, match="worker"):
+        next(it)
+    before = threading.active_count()
+    it = loader.prefetch(iter(range(1000)), size=1)
+    assert next(it) == 0
+    it.close()                       # the consumer abandons the stream
+    for _ in range(50):
+        if threading.active_count() <= before:
+            break
+        threading.Event().wait(0.05)
+    assert threading.active_count() <= before
+
+
+def test_mixture_draws_as_jax():
+    its = {name: iter(range(100)) for name in ("syn", "real")}
+    jits = {name: iter(range(100)) for name in ("syn", "real")}
+    got = loader.Mixture(its, {"syn": 3, "real": 1}, seed=5)
+    want = jloader.Mixture(jits, {"syn": 3, "real": 1}, seed=5)
+    assert [next(got) for _ in range(40)] == [next(want) for _ in range(40)]

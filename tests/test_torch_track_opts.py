@@ -48,7 +48,7 @@ from captra_tpu_torch.tracking.tracker import (
 from captra_tpu_torch.training.convert import (
     coordnet_from_flax, rotnet_from_flax,
 )
-from tests.torch_port_helpers import tiny_config, to_numpy
+from tests.torch_port_helpers import jax_pose_noise, tiny_config, to_numpy
 
 B, N, T = 2, 256, 4
 NOCS_GAIN = 100.0
@@ -371,20 +371,9 @@ def test_ransac_draws_are_explicit():
 
 
 def _jax_noise(key, shape, kind):
-    """The draws `add_noise_to_pose` makes from `key` (part_dof.py:209-224,
-    rotations.py:218-225), under the port's names."""
-    k_rot, k_s, k_tn, k_td = jax.random.split(key, 4)
-    k1, k2 = jax.random.split(k_rot)
-
-    def rand(k, s):
-        return (jax.random.uniform(k, s) if kind == "uniform"
-                else jax.random.normal(k, s))
-
-    out = {"rot_angle": rand(k1, shape),
-           "rot_quat": jax.random.normal(k2, shape + (4,)),
-           "scale": rand(k_s, shape), "trans_norm": rand(k_tn, shape),
-           "trans_dir": rand(k_td, shape + (3,))}
-    return {k: torch.from_numpy(np.asarray(v)) for k, v in out.items()}
+    """The draws `add_noise_to_pose` makes from `key`, as tensors."""
+    return {k: torch.from_numpy(v)
+            for k, v in jax_pose_noise(key, shape, kind).items()}
 
 
 @pytest.mark.parametrize("kind", ["normal", "uniform"])

@@ -1,0 +1,335 @@
+"""The port's train and finetune CLIs on the CPU (`main(argv,
+device="cpu")`), with a tiny pointnet, and checkpoints across the two
+packages: a resumed synthetic run equals the uninterrupted one bit for bit,
+the save cadence, the unported flags, `--device_aug`, `--use_val` and the
+finetune CLI on NOCS fixtures (the JAX tests' writer), a JAX checkpoint's
+Adam moments resumed exactly, and a port checkpoint read by the JAX
+package's `restore_state` / `load_track_variables` and tracked by the
+port's track CLI."""
+import dataclasses
+import os
+import pickle
+import shutil
+from os.path import join as pjoin
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from captra_tpu.config import schema as jschema
+from captra_tpu.training import checkpoint as jckpt
+from captra_tpu.training import trainer as jtrainer
+from captra_tpu_torch.cli import finetune as finetune_cli
+from captra_tpu_torch.cli import track as track_cli
+from captra_tpu_torch.cli import train as train_cli
+from captra_tpu_torch.config import schema as tschema
+from captra_tpu_torch.config.loader import DEFAULTS_DIR
+from captra_tpu_torch.training import checkpoint as ckpt
+from captra_tpu_torch.training import trainer as ttrainer
+from captra_tpu_torch.training.convert import flat_tree, flax_variables
+from tests.test_cli_e2e import TINY_POINTNET
+from tests.test_data import _write_fake_nocs
+from tests.torch_port_helpers import tiny_config, to_numpy, tree_leaves
+
+STEPS = 3
+
+
+@pytest.fixture(scope="module")
+def config_dir(tmp_path_factory):
+    """The port's bundled configs and a tiny pointnet."""
+    d = tmp_path_factory.mktemp("configs")
+    shutil.copytree(DEFAULTS_DIR, d, dirs_exist_ok=True)
+    (d / "pointnet_config" / "pointnet2_tiny.yml").write_text(TINY_POINTNET)
+    return str(d)
+
+
+def _argv(config_dir, exp, *extra, config="config_coordnet.yml",
+          synthetic=True):
+    return ["--config_dir", config_dir, "--config", config,
+            "--experiment_dir", exp,
+            "--obj_config", "obj_info_sapien.yml", "--obj_category",
+            "laptop", "--pointnet_cfg/camera", "pointnet2_tiny.yml",
+            "--num_points", "128", "--batch_size", "2",
+            "--network/backbone_out_dim", "32",
+            *(["--synthetic_data"] if synthetic else []), *extra]
+
+
+@pytest.fixture
+def short_epochs(monkeypatch):
+    """Synthetic epochs of STEPS batches of 2 x 128 points."""
+    monkeypatch.setattr(
+        train_cli, "synthetic_epoch",
+        lambda cfg, epoch, steps=50: iter(
+            [train_cli.make_frame_batch(epoch * STEPS + i, cfg.obj,
+                                        batch=2, num_points=128)
+             for i in range(STEPS)]))
+
+
+def _coordnet(cfg):
+    return cfg.replace(network=dataclasses.replace(cfg.network,
+                                                   type="canon_coord"))
+
+
+def _jax_state(jcfg, variables):
+    """A JAX TrainState over flax-named `variables` with the JAX trainer's
+    fresh optax chain (what `Trainer.init_state` gives, without flax's
+    eager init)."""
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    tx = jtrainer.Trainer(jcfg, steps_per_epoch=STEPS).tx
+    return jtrainer.TrainState(
+        params=params,
+        batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
+        opt_state=tx.init(params), step=jnp.zeros((), jnp.int32))
+
+
+def _payload(exp, epoch):
+    return ckpt.load_checkpoint(pjoin(exp, "ckpt", f"model_{epoch:04d}"))
+
+
+def _assert_equal_trees(a, b):
+    la, lb = dict(tree_leaves(a)), dict(tree_leaves(b))
+    assert sorted(la) == sorted(lb)
+    for k in la:
+        np.testing.assert_array_equal(la[k], lb[k], err_msg=k)
+
+
+def test_resumed_run_equals_the_uninterrupted_one(config_dir, tmp_path,
+                                                  short_epochs):
+    straight = str(tmp_path / "straight")
+    train_cli.main(_argv(config_dir, straight, "--total_epoch", "2"),
+                   device="cpu")
+    resumed = str(tmp_path / "resumed")
+    train_cli.main(_argv(config_dir, resumed, "--total_epoch", "1"),
+                   device="cpu")
+    assert sorted(os.listdir(pjoin(resumed, "ckpt"))) == ["model_0000"]
+    train_cli.main(_argv(config_dir, resumed, "--total_epoch", "2"),
+                   device="cpu")
+    a, b = _payload(straight, 1), _payload(resumed, 1)
+    assert a["epoch"] == b["epoch"] == 1
+    assert a["step"] == b["step"] == 2 * STEPS
+    for key in ("params", "batch_stats", "opt_state"):
+        _assert_equal_trees(a[key], b[key])
+    assert int(a["opt_state"]["count"]) == 2 * STEPS
+    # the JAX CLI's log lines, and the resume
+    log = open(pjoin(resumed, "log", "log.txt")).read()
+    assert "resumed from" in log and "(epoch 1)" in log
+    for k in ("total_loss", "seg_loss", "nocs_loss", "corner_loss",
+              "5deg5cm", "rdiff"):
+        assert f"Train epoch 1 {k} is " in log, k
+    assert f"epoch 1: {STEPS} steps in " in log
+    # the losses fell over the two epochs on the laptop
+    first = float(log.split("Train epoch 1 total_loss is ")[1].split()[0])
+    log0 = open(pjoin(straight, "log", "log.txt")).read()
+    zero = float(log0.split("Train epoch 0 total_loss is ")[1].split()[0])
+    assert np.isfinite(first) and np.isfinite(zero)
+
+
+def test_save_frequency(config_dir, tmp_path, short_epochs):
+    exp = str(tmp_path / "freq")
+    train_cli.main(_argv(config_dir, exp, "--total_epoch", "4",
+                         "--freq/save", "2"), device="cpu")
+    assert sorted(os.listdir(pjoin(exp, "ckpt"))) == ["model_0001",
+                                                     "model_0003"]
+
+
+@pytest.mark.parametrize("flags", [["--num_devices", "2"],
+                                   ["--ckpt_format", "orbax"]])
+def test_unported_flags_raise(config_dir, tmp_path, flags):
+    with pytest.raises(NotImplementedError, match=flags[0][2:]):
+        train_cli.main(_argv(config_dir, str(tmp_path / "x"), *flags),
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match=flags[0][2:]):
+        finetune_cli.main(_argv(config_dir, str(tmp_path / "y"), *flags),
+                          device="cpu")
+
+
+def test_device_aug_trains_rotnet(config_dir, tmp_path, monkeypatch):
+    monkeypatch.setattr(train_cli, "SYNTHETIC_STEPS", 4)
+    exp = str(tmp_path / "aug")
+    state = train_cli.main(_argv(config_dir, exp, "--total_epoch", "1",
+                                 "--device_aug", "--geom_pool", "8",
+                                 config="config_rotnet.yml"), device="cpu")
+    assert state.step == 4
+    payload = _payload(exp, 0)
+    assert payload["step"] == 4 and "mu" in payload["opt_state"]
+    log = open(pjoin(exp, "log", "log.txt")).read()
+    assert "Train epoch 0 rloss is " in log
+    with pytest.raises(SystemExit):
+        train_cli.main(_argv(config_dir, exp, "--device_aug",
+                             synthetic=False), device="cpu")
+
+
+def test_port_checkpoints_load_in_jax_and_track_in_the_port(
+        config_dir, tmp_path, short_epochs):
+    coord, rot = str(tmp_path / "coord"), str(tmp_path / "rot")
+    cstate = train_cli.main(_argv(config_dir, coord, "--total_epoch", "1"),
+                            device="cpu")
+    train_cli.main(_argv(config_dir, rot, "--total_epoch", "1",
+                         config="config_rotnet.yml"), device="cpu")
+    path = pjoin(coord, "ckpt", "model_0000")
+    # the JAX package's restore_state: params and statistics, the step;
+    # its tolerant fallback gives fresh moments for the port's layout
+    jcfg = _coordnet(tiny_config(jschema, "laptop", num_points=128))
+    jstate = _jax_state(jcfg, flax_variables(
+        ttrainer.Trainer(_coordnet(tiny_config(tschema, "laptop")), 1,
+                         device="cpu").init_state().module))
+    got = jckpt.restore_state(jckpt.load_checkpoint(path), jstate)
+    want = flax_variables(cstate.module)
+    _assert_equal_trees(to_numpy(got.params), want["params"])
+    _assert_equal_trees(to_numpy(got.batch_stats), want["batch_stats"])
+    assert int(got.step) == STEPS
+    fresh = jax.tree.leaves(jstate.opt_state)
+    for a, b in zip(jax.tree.leaves(got.opt_state), fresh):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    cv, rv = jckpt.load_track_variables(path, pjoin(rot, "ckpt",
+                                                    "model_0000"))
+    _assert_equal_trees(to_numpy(cv["params"]), want["params"])
+    # the port's track CLI on both trained nets
+    avgs = track_cli.main(
+        ["--config_dir", config_dir, "--experiment_dir", rot,
+         "--coord_exp/dir", coord, "--obj_config", "obj_info_sapien.yml",
+         "--obj_category", "laptop", "--pointnet_cfg/camera",
+         "pointnet2_tiny.yml", "--num_points", "128",
+         "--network/backbone_out_dim", "32", "--synthetic_data", "--save"],
+        device="cpu")
+    assert all(np.isfinite(v).all() for v in avgs.values())
+    assert len(os.listdir(pjoin(rot, "results", "data"))) == 4
+
+
+def test_jax_checkpoint_resumes_with_its_adam_moments(tmp_path):
+    cfg = {s: _coordnet(tiny_config(s, "laptop", num_points=128))
+           for s in (jschema, tschema)}
+    tt = ttrainer.Trainer(cfg[tschema], steps_per_epoch=STEPS, device="cpu")
+    jstate = _jax_state(cfg[jschema], flax_variables(
+        tt.init_state(generator=torch.Generator().manual_seed(2)).module))
+    # seeded moments and count in the optax chain's own structure
+    rng = np.random.RandomState(3)
+    opt = jax.tree.map(
+        lambda x: (jnp.asarray(7, x.dtype) if x.ndim == 0
+                   and x.dtype == jnp.int32 else
+                   jnp.asarray(rng.rand(*x.shape).astype(np.float32))
+                   if x.dtype == jnp.float32 else x), jstate.opt_state)
+    jstate = jstate.replace(opt_state=opt, step=jnp.asarray(7, jnp.int32))
+    path = jckpt.save_checkpoint(str(tmp_path / "ckpt"), 2, jstate)
+    adam = next(s for s in opt if type(s).__name__ == "ScaleByAdamState")
+
+    state = ckpt.restore_state(ckpt.load_checkpoint(path),
+                               tt.init_state(generator=torch.Generator()
+                                             .manual_seed(0)))
+    assert state.step == 7 and state.opt_state["count"] == 7
+    _assert_equal_trees(flat_tree(state, state.opt_state["mu"]),
+                        to_numpy(adam.mu))
+    _assert_equal_trees(flat_tree(state, state.opt_state["nu"]),
+                        to_numpy(adam.nu))
+    _assert_equal_trees(flax_variables(state.module)["params"],
+                        to_numpy(jstate.params))
+    # a structure that does not map: fresh moments
+    payload = ckpt.load_checkpoint(path)
+    payload["opt_state"] = {"count": 3, "mu": {"nothing": np.zeros(2)}}
+    state = ckpt.restore_state(payload, tt.init_state())
+    assert state.opt_state["count"] == 0
+    assert float(state.opt_state["mu"].abs().max()) == 0.0
+    # and the port's own layout round-trips
+    gen = torch.Generator().manual_seed(1)
+    for view in state.param_views(state.opt_state["mu"]).values():
+        view.uniform_(generator=gen)
+    state.opt_state["count"] = 5
+    saved = ckpt.save_train_state(str(tmp_path / "own"), 0, state)
+    back = ckpt.restore_state(ckpt.load_checkpoint(saved), tt.init_state())
+    assert torch.equal(back.opt_state["mu"], state.opt_state["mu"])
+    assert back.opt_state["count"] == 5
+
+
+def _nocs_root(tmp_path, modes):
+    root = str(tmp_path / "data")
+    for mi, mode in enumerate(modes):
+        _write_fake_nocs(root, instances=("insA",), tracks=1, frames=4,
+                         n=300, seed=mi)
+        if mode != "real_test":
+            os.rename(pjoin(root, "render", "real_test"),
+                      pjoin(root, "render", mode))
+    return root
+
+
+def _nocs_argv(config_dir, root, exp, *extra):
+    return ["--config_dir", config_dir, "--config", "config_coordnet.yml",
+            "--obj_config", "obj_info_nocs.yml", "--obj_category", "1",
+            "--basepath", root, "--experiment_dir", exp,
+            "--pointnet_cfg/camera", "pointnet2_tiny.yml",
+            "--network/backbone_out_dim", "32", "--num_points", "128",
+            "--batch_size", "2", "--total_epoch", "1", *extra]
+
+
+def test_train_on_disk_with_use_val(config_dir, tmp_path):
+    root = _nocs_root(tmp_path, ("train", "val", "real_test"))
+    exp = str(tmp_path / "exp")
+    state = train_cli.main(_nocs_argv(config_dir, root, exp, "--use_val",
+                                      "val"), device="cpu")
+    assert state.step == 2  # 4 frames of train at batch 2
+    log = open(pjoin(exp, "log", "log.txt")).read()
+    for tag in ("Train", "Test", "val"):
+        assert f"{tag} epoch 0 total_loss is " in log, tag
+    assert "nocs_dist_loss" in log and "nocs_pwm_loss" in log
+
+
+def test_finetune_mixes_synthetic_and_real(config_dir, tmp_path):
+    root = _nocs_root(tmp_path, ("train", "real_train", "real_test"))
+    exp = str(tmp_path / "exp")
+    state = finetune_cli.main(_nocs_argv(config_dir, root, exp, "--syn_n",
+                                         "1"), device="cpu")
+    assert state.step == 4  # 2 synthetic + 2 real batches
+    assert os.path.exists(pjoin(exp, "ckpt", "model_0000"))
+    log = open(pjoin(exp, "log", "log.txt")).read()
+    for tag in ("Syn_Train", "Real_Train", "Test"):
+        assert f"{tag} epoch 0 total_loss is " in log, tag
+
+
+def test_syn_stream_fast_forward(tmp_path):
+    from itertools import islice
+
+    from captra_tpu_torch.config.schema import ObjCfg
+    from captra_tpu_torch.data.nocs import NOCSDataset
+    root = _nocs_root(tmp_path, ("train",))
+    obj = ObjCfg(category="1", num_parts=1, num_joints=0, tree=(-1,),
+                 extra_dims=1)
+    ds = NOCSDataset(root, "1", obj, num_points=64, mode="train")
+    straight = list(islice(finetune_cli.syn_stream(ds, 2, consumed=0), 7))
+    resumed = list(islice(finetune_cli.syn_stream(ds, 2, consumed=5), 2))
+    for a, b in zip(straight[5:], resumed):
+        # the same frames in the same order (the point shuffle's draws of
+        # the skipped batches are not replayed)
+        np.testing.assert_allclose(a["points"].numpy().mean(axis=1),
+                                   b["points"].numpy().mean(axis=1),
+                                   atol=2e-2)
+    with pytest.raises(ValueError, match="batch_size"):
+        next(finetune_cli.syn_stream(ds, 64, consumed=0))
+
+
+def test_pickle_payload_is_plain(config_dir, tmp_path, short_epochs):
+    exp = str(tmp_path / "plain")
+    train_cli.main(_argv(config_dir, exp, "--total_epoch", "1"),
+                   device="cpu")
+    # the port's checkpoint unpickles with numpy alone (no optax classes)
+    with open(pjoin(exp, "ckpt", "model_0000"), "rb") as fh:
+        payload = pickle.load(fh)
+    assert sorted(payload["opt_state"]) == ["count", "mu", "nu"]
+    assert payload["opt_state"]["count"].dtype == np.int32
+
+
+def test_flax_variables_is_a_copy():
+    """A tree taken from a CPU module keeps its values when the module then
+    trains (it once held views of the live tensors)."""
+    cfg = _coordnet(tiny_config(tschema, "laptop", num_points=128))
+    tt = ttrainer.Trainer(cfg, steps_per_epoch=1, device="cpu")
+    state = tt.init_state(generator=torch.Generator().manual_seed(0))
+    before = flax_variables(state.module)
+    kept = {k: v.copy() for k, v in tree_leaves(before)}
+    tt.train_step(state, train_cli.make_frame_batch(0, cfg.obj, batch=2,
+                                                    num_points=128),
+                  generator=torch.Generator().manual_seed(1))
+    for k, v in tree_leaves(before):
+        np.testing.assert_array_equal(v, kept[k], err_msg=k)
+    after = dict(tree_leaves(flax_variables(state.module)))
+    assert any(not np.array_equal(after[k], kept[k]) for k in kept)

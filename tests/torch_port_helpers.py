@@ -51,6 +51,16 @@ def perturb(tree, rng):
     return out
 
 
+def tree_leaves(tree, path=()):
+    """(slash path, numpy array) of every leaf of a nested dict, in sorted
+    key order."""
+    if hasattr(tree, "items"):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], path + (k,))
+    else:
+        yield "/".join(path), np.asarray(tree)
+
+
 def cloud(rng, *shape):
     return (rng.randn(*shape, 3) * 0.3).astype(np.float32)
 
@@ -102,3 +112,53 @@ def png_filter_row(kind: int, cur: bytes, prev: bytes, bpp: int) -> bytes:
             pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
         out[i] = (cur[i] - pred) & 0xFF
     return bytes(out)
+
+
+def jax_pose_noise(key, shape, kind):
+    """The draws `add_noise_to_pose` makes from `key` (part_dof.py:209-224,
+    rotations.py:218-225), under the port's names, as numpy arrays."""
+    import jax
+    k_rot, k_s, k_tn, k_td = jax.random.split(key, 4)
+    k1, k2 = jax.random.split(k_rot)
+
+    def rand(k, s):
+        return (jax.random.uniform(k, s) if kind == "uniform"
+                else jax.random.normal(k, s))
+
+    out = {"rot_angle": rand(k1, shape),
+           "rot_quat": jax.random.normal(k2, shape + (4,)),
+           "scale": rand(k_s, shape), "trans_norm": rand(k_tn, shape),
+           "trans_dir": rand(k_td, shape + (3,))}
+    return {k: np.array(v) for k, v in out.items()}
+
+
+def jax_pwm_indices(key, labels, pwm_num):
+    """The sample `sym_nocs_loss` draws from `key` (losses.py:98-101) over
+    labels [B, N], as numpy [B, pwm_num]."""
+    import jax
+    import jax.numpy as jnp
+    labels = jnp.asarray(labels)
+    logits = jnp.where(labels == 0, 0.0, -1e9)
+    keys = jax.random.split(key, labels.shape[0])
+    return np.array(jax.vmap(lambda k, lg: jax.random.categorical(
+        k, lg, shape=(pwm_num,)))(keys, logits))
+
+
+def jax_train_draws(cfg, key, labels):
+    """The draws of one JAX train / eval step with `key` (trainer.py:138,
+    :213), for the port's `draws=` (labels: the ones the pairwise sample
+    is over)."""
+    import jax
+    import torch
+    B = np.asarray(labels).shape[0]
+    P = cfg.obj.num_parts
+    if cfg.network.type == "rot":
+        return {"noise": {k: torch.from_numpy(v) for k, v in jax_pose_noise(
+            key, (B, P), cfg.perturb.kind).items()}}
+    k_noise, k_pwm = jax.random.split(key)
+    draws = {"noise": {k: torch.from_numpy(v) for k, v in jax_pose_noise(
+        k_noise, (B, P), cfg.perturb.kind).items()}}
+    if cfg.obj.sym:
+        draws["pwm_idx"] = torch.from_numpy(
+            jax_pwm_indices(k_pwm, labels, cfg.network.pwm_num))
+    return draws
