@@ -14,8 +14,9 @@ Disk layout (the reference's rendered output):
 
 Every random draw (the FPS pre-subsample, the per-part coverage fix-up)
 comes from the reader's own `np.random.RandomState(seed)`, in the JAX
-reader's order.  Depth-sensor perturbation (`read_cloud(perturb=True)`) is
-training augmentation and raises `NotImplementedError` in this package.
+reader's order.  Depth-sensor perturbation (`read_cloud(perturb=True)`,
+training augmentation) draws from the caller's `rng` in the JAX function's
+order with OpenCV present, and blurs with `data/blur.py` (no OpenCV).
 Line references (arti_data_process.py:N, data_utils.py:N) are to the
 reference's datasets/.
 """
@@ -29,6 +30,7 @@ import numpy as np
 
 from captra_tpu_torch.config.schema import ObjCfg
 from captra_tpu_torch.data import numpy_ops as nops
+from captra_tpu_torch.data.blur import gaussian_blur
 
 
 # ---------------------------------------------------------------------------
@@ -95,26 +97,35 @@ def get_obj2norm_pose(corner, factor) -> np.ndarray:
 _PERMUTATION = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], np.float64)
 
 
-_NO_PERTURB = ("depth-sensor perturbation (sapien.perturb_depth, "
-               "read_cloud perturb=True) is training augmentation and is not "
-               "ported")
-
-
 def perturb_depth(depth: np.ndarray, mask: np.ndarray,
-                  rng: np.random.RandomState) -> np.ndarray:
+                  rng: np.random.RandomState, sigma: float = 0.000075,
+                  noise_prob: float = 0.5, max_ksize: int = 6) -> np.ndarray:
     """Depth-sensor noise simulation (reference gaussian_noise /
-    gaussian_blur, arti_data_process.py:16-30): not ported, raises."""
-    raise NotImplementedError(_NO_PERTURB)
+    gaussian_blur, arti_data_process.py:16-30): Gaussian noise of a std
+    drawn in [0, sigma) on a random half of the masked pixels, then a
+    Gaussian blur (sigma 0.2) of a drawn odd size in [3, 2 * (max_ksize //
+    2) + 1].  Draws from `rng`: the pixel mask, the std, a full image of
+    normals, the kernel size.  Points displaced > 5 cm get relabelled as
+    clutter by the caller (arti_data_process.py:53-58)."""
+    depth = depth.copy()
+    prob_mask = rng.uniform(size=depth.shape) < noise_prob
+    m = np.bitwise_and(prob_mask, mask)
+    std = rng.uniform(0, sigma)
+    depth[m] += rng.normal(0, std, size=depth.shape)[m]
+    ksize = 2 * rng.randint(1, max_ksize // 2 + 1) + 1
+    return gaussian_blur(depth, ksize, 0.2)
 
 
-def opengl_depth_to_points(cloud_dict: dict):
+def opengl_depth_to_points(cloud_dict: dict, pixel_mask=None):
     """OpenGL depth buffer -> camera points + per-pixel seg labels of the
-    pixels with depth < 1."""
+    pixels with depth < 1, or of `pixel_mask` (which pins the pixel set
+    when perturbed depth is read again, so the points stay aligned,
+    arti_data_process.py:44-58)."""
     depth = np.asarray(cloud_dict["depth"])
     seg_img = np.asarray(cloud_dict["seg"])
     camera_matrix = np.asarray(cloud_dict["camera_matrix"])
     near, far = cloud_dict["near"], cloud_dict["far"]
-    y, x = np.where(depth < 1)
+    y, x = np.where((depth < 1) if pixel_mask is None else pixel_mask)
     z = near * far / (far + depth[y, x] * (near - far))
     uv1 = np.stack([x, y, np.ones_like(x)], axis=0) * z
     pts = (_PERMUTATION @ (np.linalg.inv(camera_matrix) @ uv1)).T
@@ -126,11 +137,20 @@ def read_cloud(cloud_dict: dict, num_points: int,
                synthetic: bool = False, num_parts: int | None = None,
                perturb: bool = False):
     """Depth -> FPS-downsampled cloud with per-part minimum-coverage fixup
-    (reference read_cloud, arti_data_process.py:33-91).  `perturb` (sensor
-    noise, training augmentation) raises NotImplementedError."""
-    if perturb:
-        raise NotImplementedError(_NO_PERTURB)
+    (reference read_cloud, arti_data_process.py:33-91).  With `perturb`,
+    sensor noise is simulated (`perturb_depth`) and points displaced > 5 cm
+    are relabelled as clutter (arti_data_process.py:53-58)."""
     cam_points, seg = opengl_depth_to_points(cloud_dict)
+    if perturb:
+        depth = np.asarray(cloud_dict["depth"])
+        pert = dict(cloud_dict)
+        pert["depth"] = perturb_depth(depth.astype(np.float64),
+                                      depth < 1, rng)
+        pert_points, _ = opengl_depth_to_points(pert, pixel_mask=depth < 1)
+        displaced = np.linalg.norm(cam_points - pert_points, axis=-1) > 0.05
+        seg = seg.copy()
+        seg[displaced] = seg.max() - 1
+        cam_points = pert_points
     if not synthetic:
         keep = cam_points[:, 0] < min_dis
         cam_points, seg = cam_points[keep], seg[keep]

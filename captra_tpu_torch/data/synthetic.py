@@ -8,7 +8,9 @@ categories, box faces otherwise), a smooth per-frame 9-DoF pose trajectory
 = posed NPCS + sensor noise.  `make_frame_batch` cuts single-frame training
 batches from them; `geometry_pool` keeps the pose-free geometry on the host
 and `device_pose_batch` renders it under fresh random poses on the device,
-its draws explicit (`draw_pose_batch` from a `torch.Generator`, or given).
+its draws explicit (`draw_pose_batch` from a `torch.Generator`, or given);
+`device_trajectory_batch` renders smooth trajectories of it the same way
+(`draw_trajectory_batch`).
 """
 from __future__ import annotations
 
@@ -228,28 +230,32 @@ def geometry_pool(seed: int, obj: ObjCfg, count: int,
             "corners": np.stack(all_corners)}
 
 
+def _normal(generator: torch.Generator, *shape) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, device=generator.device)
+
+
+def _unit(generator: torch.Generator, *shape) -> torch.Tensor:
+    # uniform [0, 1)
+    return torch.rand(shape, generator=generator, device=generator.device)
+
+
 def draw_pose_batch(B: int, N: int, P: int,
                     generator: torch.Generator) -> dict:
     """`device_pose_batch`'s raw draws for B clouds of N points and P parts
     from `generator`, on its device: standard normal "quat" [B, 4] and
     "noise" [B, N, 3], uniform [0, 1) "trans" [B, 3], "scale" [B] and
     "theta" [B, P]."""
-    def normal(*shape):
-        return torch.randn(shape, generator=generator,
-                           device=generator.device)
-
-    def uniform(*shape):
-        return torch.rand(shape, generator=generator,
-                          device=generator.device)
-
-    return {"quat": normal(B, 4), "trans": uniform(B, 3),
-            "scale": uniform(B), "theta": uniform(B, P),
-            "noise": normal(B, N, 3)}
+    g = generator
+    return {"quat": _normal(g, B, 4), "trans": _unit(g, B, 3),
+            "scale": _unit(g, B), "theta": _unit(g, B, P),
+            "noise": _normal(g, B, N, 3)}
 
 
 def _uniform(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    # jax.random.uniform's map of [0, 1) floats onto [lo, hi), in float32
-    span = float(np.float32(hi) - np.float32(lo))
+    # jax.random.uniform's map of [0, 1) floats onto [lo, hi), the span in
+    # the draws' dtype
+    dt = np.float64 if u.dtype == torch.float64 else np.float32
+    span = float(dt(hi) - dt(lo))
     return torch.clamp_min(u * span + lo, lo)
 
 
@@ -295,6 +301,98 @@ def device_pose_batch(npcs: torch.Tensor, labels: torch.Tensor,
                 scale=s[:, None].expand(B, P))
     return {"points": points, "labels": labels, "nocs": npcs, "pose": pose,
             "corners": corners}
+
+
+def draw_trajectory_batch(B: int, N: int, P: int, num_frames: int,
+                          generator: torch.Generator) -> dict:
+    """`device_trajectory_batch`'s raw draws for B trajectories of
+    `num_frames` frames, N points and P parts from `generator`, on its
+    device: standard normal "quat" [B, 4], "axis" [B, 3], "dtrans" [B, 3]
+    and "noise" [T, B, N, 3], uniform [0, 1) "trans" [B, 3], "scale" [B],
+    "theta0" [B, P] and "djoint" [B, P]."""
+    g = generator
+    return {"quat": _normal(g, B, 4), "trans": _unit(g, B, 3),
+            "scale": _unit(g, B), "theta0": _unit(g, B, P),
+            "djoint": _unit(g, B, P), "axis": _normal(g, B, 3),
+            "dtrans": _normal(g, B, 3),
+            "noise": _normal(g, num_frames, B, N, 3)}
+
+
+def device_trajectory_batch(npcs: torch.Tensor, labels: torch.Tensor,
+                            corners: torch.Tensor, obj: ObjCfg,
+                            num_frames: int, draws: dict | None = None,
+                            generator: torch.Generator | None = None,
+                            scale_range=(0.15, 0.3), noise: float = 0.002,
+                            motion_rad: float = 0.03,
+                            motion_trans: float = 0.01) -> dict:
+    """Smooth [T, B] trajectories of pooled geometry rendered on its
+    device, the trajectory analogue of `device_pose_batch` (on-policy
+    rollout fine-tuning, `training/rollout.py`).  The base pose has
+    `device_pose_batch`'s distribution; the root then turns by
+    `motion_rad` a frame about a random axis (the drift composed on the
+    left) and moves `motion_trans` a frame along a random direction, and
+    each child joint advances at a constant random rate, as
+    `make_trajectory` moves them.
+
+    npcs [B, N, 3], labels [B, N], corners [B, P, 2, 3] -> {points
+    [T, B, N, 3], labels [T, B, N], nocs [T, B, N, 3], pose `Pose`
+    [T, B, P], corners [B, P, 2, 3]}.  The draws are `draws`
+    (`draw_trajectory_batch`'s), else drawn from `generator`, else this
+    raises."""
+    B, N, _ = npcs.shape
+    P = obj.num_parts
+    T = num_frames
+    if draws is None:
+        if generator is None:
+            raise ValueError("device_trajectory_batch needs its draws "
+                             "(draws=) or a torch.Generator")
+        draws = draw_trajectory_batch(B, N, P, T, generator)
+    dtype, dev = npcs.dtype, npcs.device
+    q = draws["quat"]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    R0 = quat_to_matrix(q)                                      # [B, 3, 3]
+    t0 = _uniform(draws["trans"], -0.1, 0.1) + constant(
+        (0.0, 0.0, 0.8), dtype, dev)
+    s = _uniform(draws["scale"], *scale_range)
+    theta0 = _uniform(draws["theta0"], 0.0, 0.6)
+    djoint = _uniform(draws["djoint"], 0.2, 1.0) * 0.03
+    axis = draws["axis"]
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
+    dtrans = draws["dtrans"]
+    dtrans = dtrans / torch.linalg.norm(dtrans, dim=-1,
+                                        keepdim=True) * motion_trans
+
+    f = torch.arange(1, T + 1, dtype=torch.float32, device=dev)  # [T]
+    # the drift of every (frame, trajectory): Rodrigues(axis_b, rad * f)
+    drift = axis_theta_to_matrix(
+        axis[None].expand(T, B, 3).reshape(T * B, 3),
+        (motion_rad * f)[:, None].expand(T, B).reshape(T * B))
+    R_root = torch.einsum("mij,mjk->mik", drift,
+                          R0[None].expand(T, B, 3, 3).reshape(T * B, 3, 3))
+    t_root = (t0[None] + f[:, None, None] * dtrans[None]).reshape(T * B, 3)
+    theta = (theta0[None] + (f - 1.0)[:, None, None] * djoint[None]) \
+        .reshape(T * B, P)
+    s_flat = s[None].expand(T, B).reshape(T * B)
+
+    offsets = torch.mean(corners, dim=2)                        # [B, P, 3]
+    off_flat = offsets[None].expand(T, B, P, 3).reshape(T * B, P, 3)
+    R, t = _compose_parts(R_root, t_root, s_flat, theta, off_flat, obj)
+
+    npcs_flat = npcs[None].expand(T, B, N, 3).reshape(T * B, N, 3)
+    labels_flat = labels.long()[None].expand(T, B, N).reshape(T * B, N)
+    posed = torch.einsum("bpij,bnj->bpni", R, npcs_flat) \
+        * s_flat[:, None, None, None] + t[:, :, None]           # [TB,P,N,3]
+    own = torch.gather(posed, 1, labels_flat[:, None, :, None].expand(
+        T * B, 1, N, 3))[:, 0]
+    points = own + noise * draws["noise"].reshape(T * B, N, 3)
+
+    pose = Pose(rotation=R.reshape(T, B, P, 3, 3),
+                translation=t.reshape(T, B, P, 3)[..., None],
+                scale=s[None, :, None].expand(T, B, P))
+    return {"points": points.reshape(T, B, N, 3),
+            "labels": labels[None].expand(T, B, N),
+            "nocs": npcs[None].expand(T, B, N, 3),
+            "pose": pose, "corners": corners}
 
 
 def _compose_parts(R_root, t_root, s, theta, offsets, obj: ObjCfg):

@@ -114,8 +114,10 @@ def make_track_step(cfg: Config, coord_fn: Callable, rot_fn: Callable,
     root = tree_root(obj.tree)
     P = obj.num_parts
     track = cfg.track
+    # only the OTF crop reads the camera (a copy from host memory, which
+    # synchronises the host, once a step built)
     K = intrinsics_tensor(NOCS_REAL_INTRINSICS if intrinsics is None
-                          else intrinsics, device)
+                          else intrinsics, device) if track.nocs_otf else None
 
     def otf_points(pose: Pose, frame: dict):
         """Raw depth -> cropped points [B, N, 3], mask labels [B, N] and

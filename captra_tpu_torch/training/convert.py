@@ -17,8 +17,25 @@ walk:
 the port writes checkpoints in the JAX package's layout
 (`training/checkpoint.py`).  `optimizer_tree` / `restore_optimizer` map a
 training state's optimizer moments to and from flax-named trees (the port's
-checkpoint layout) and read a JAX checkpoint's optax state.  Loading the
-reference's torch `.pt` checkpoints is a later slice.
+checkpoint layout) and read a JAX checkpoint's optax state.
+
+The reference's released torch checkpoints (`.pt` / `.tar`: {epoch,
+iteration, model: state_dict, optimizer}, reference trainer.py:196-210) map
+onto the same flax trees through `load_torch_state_dict` and the
+`convert_*` functions, numpy for numpy the JAX package's
+(`captra_tpu/training/convert.py`), so they reach the port's nets through
+`load_flax_variables` like any flax tree.  Key layout of the reference's
+modules:
+
+  CoordNet:    net.backbone.* / net.seg_head.* / net.nocs_head.*
+               (networks.py:19-32, backbones.py:15-53)
+  RotationNet: net.regress_net.encoder.* /
+               net.regress_net.pose_pred.rtvec_head.{p}.model.*
+               (networks.py:113-121, blocks.py:168-179)
+
+torch's 1x1 Conv1d / Conv2d weights [Cout, Cin, 1(, 1)] become Dense
+kernels [Cin, Cout]; BN running statistics become batch_stats; the P
+rotation heads stack on the leading axis of `heads`.
 """
 from __future__ import annotations
 
@@ -28,7 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from captra_tpu_torch.config.schema import Config
+from captra_tpu_torch.config.schema import Config, PointNetCfg
 from captra_tpu_torch.models.coordnet import CoordNet
 from captra_tpu_torch.models.rotnet import RotNet
 
@@ -228,3 +245,147 @@ def coordnet_from_flax(cfg: Config, variables: Mapping,
 def rotnet_from_flax(cfg: Config, variables: Mapping, device=None) -> RotNet:
     """A `RotNet` on `device` (CUDA unless given) holding flax variables."""
     return load_flax_variables(RotNet(cfg, device=device), variables)
+
+
+# ---------------------------------------------------------------------------
+# the reference's torch checkpoints
+# ---------------------------------------------------------------------------
+
+def load_torch_state_dict(path: str) -> dict:
+    """A reference checkpoint's model state_dict as numpy arrays.  Read
+    with `weights_only=True`: tensors and plain containers only, so the
+    file cannot name arbitrary classes."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model", ckpt)
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()}
+
+
+def _dense(sd, key):
+    w = np.asarray(sd[f"{key}.weight"])
+    w = w.reshape(w.shape[0], w.shape[1])  # drop 1x1 conv spatial dims
+    return {"kernel": w.T.astype(np.float32),
+            "bias": np.asarray(sd[f"{key}.bias"], np.float32)}
+
+
+def _norm(sd, key):
+    return ({"scale": np.asarray(sd[f"{key}.weight"], np.float32),
+             "bias": np.asarray(sd[f"{key}.bias"], np.float32)},
+            {"mean": np.asarray(sd.get(f"{key}.running_mean", 0.0),
+                                np.float32),
+             "var": np.asarray(sd.get(f"{key}.running_var", 1.0),
+                               np.float32)})
+
+
+def _point_mlp(sd, conv_keys, norm_keys):
+    """One PointMLP's (params, batch_stats) from torch layer keys (None in
+    `norm_keys`: no norm for that layer)."""
+    params, stats = {}, {}
+    for j, ck in enumerate(conv_keys):
+        params[f"dense_{j}"] = _dense(sd, ck)
+    for j, nk in enumerate(norm_keys):
+        if nk is None:
+            continue
+        p, s = _norm(sd, nk)
+        params[f"norm_{j}"] = p
+        if f"{nk}.running_mean" in sd:
+            stats[f"norm_{j}"] = s
+    return params, stats
+
+
+def convert_backbone(sd: dict, prefix: str, pn: PointNetCfg):
+    """A torch PointNet2Msg state_dict subtree -> (params, batch_stats)."""
+    params, stats = {}, {}
+
+    for name, sa in (("sa1", pn.sa1), ("sa2", pn.sa2)):
+        p_sa, s_sa = {}, {}
+        for i, mlp in enumerate(sa.mlp_list):
+            convs = [f"{prefix}.{name}.conv_blocks.{i}.{j}"
+                     for j in range(len(mlp))]
+            norms = [f"{prefix}.{name}.bn_blocks.{i}.{j}"
+                     for j in range(len(mlp))]
+            p, s = _point_mlp(sd, convs, norms)
+            p_sa[f"scale_{i}"] = p
+            s_sa[f"scale_{i}"] = s
+        params[name] = p_sa
+        stats[name] = s_sa
+
+    def seq(name, mlp_len, conv_fmt, norm_fmt):
+        convs = [conv_fmt.format(j) for j in range(mlp_len)]
+        norms = [norm_fmt.format(j) for j in range(mlp_len)]
+        p, s = _point_mlp(sd, convs, norms)
+        params[name] = {"mlp": p}
+        stats[name] = {"mlp": s}
+
+    seq("sa3", len(pn.sa3_mlp), f"{prefix}.sa3.mlp_convs.{{}}",
+        f"{prefix}.sa3.mlp_bns.{{}}")
+    for fp, mlp in (("fp3", pn.fp3_mlp), ("fp2", pn.fp2_mlp),
+                    ("fp1", pn.fp1_mlp)):
+        seq(fp, len(mlp), f"{prefix}.{fp}.mlp_convs.{{}}",
+            f"{prefix}.{fp}.mlp_bns.{{}}")
+
+    p, s = _point_mlp(sd, [f"{prefix}.conv1"], [f"{prefix}.bn1"])
+    params["out"] = p
+    stats["out"] = s
+    return params, stats
+
+
+def convert_coordnet(sd: dict, cfg: Config, prefix: str = "net") -> dict:
+    """A reference CoordNet state_dict -> flax variables {params,
+    batch_stats}."""
+    bb_p, bb_s = convert_backbone(sd, f"{prefix}.backbone", cfg.pointnet)
+    # seg head: one conv (get_point_mlp(in, out, []), blocks.py:29)
+    seg_p, _ = _point_mlp(sd, [f"{prefix}.seg_head.0"], [None])
+    # nocs head: [conv, BN, ReLU] per hidden layer, then conv (, Sigmoid)
+    convs, norms = [], []
+    idx = 0
+    for _ in range(len(cfg.network.nocs_head_dims)):
+        convs.append(f"{prefix}.nocs_head.{idx}")
+        norms.append(f"{prefix}.nocs_head.{idx + 1}")
+        idx += 3
+    convs.append(f"{prefix}.nocs_head.{idx}")
+    norms.append(None)
+    nocs_p, nocs_s = _point_mlp(sd, convs, norms)
+    return {
+        "params": {"backbone": bb_p, "seg_head": seg_p,
+                   "nocs_head": nocs_p},
+        "batch_stats": {"backbone": bb_s, "nocs_head": nocs_s},
+    }
+
+
+def convert_rotnet(sd: dict, cfg: Config, prefix: str = "net") -> dict:
+    """A reference PartCanonNet state_dict -> flax variables."""
+    enc_p, enc_s = convert_backbone(sd, f"{prefix}.regress_net.encoder",
+                                    cfg.pointnet)
+    # per-part heads: MLPConv1d Sequential [conv, GN, ReLU] x 3 + [conv] ->
+    # module indices 0, 1 / 3, 4 / 6, 7 / 9 (blocks.py:147-165)
+    P = cfg.obj.num_parts
+    heads_p: dict = {}
+    for j, (ci, ni) in enumerate(zip((0, 3, 6, 9), (1, 4, 7, None))):
+        kernels, biases, scales, nbiases = [], [], [], []
+        for p in range(P):
+            base = f"{prefix}.regress_net.pose_pred.rtvec_head.{p}.model"
+            d = _dense(sd, f"{base}.{ci}")
+            kernels.append(d["kernel"])
+            biases.append(d["bias"])
+            if ni is not None:
+                n, _ = _norm(sd, f"{base}.{ni}")
+                scales.append(n["scale"])
+                nbiases.append(n["bias"])
+        heads_p[f"dense_{j}"] = {"kernel": np.stack(kernels),
+                                 "bias": np.stack(biases)}
+        if ni is not None:
+            heads_p[f"norm_{j}"] = {"scale": np.stack(scales),
+                                    "bias": np.stack(nbiases)}
+    return {
+        "params": {"encoder": enc_p, "regressor": {"heads": heads_p}},
+        "batch_stats": {"encoder": enc_s},
+    }
+
+
+def convert_track_checkpoint(path: str, cfg: Config):
+    """A composed tracking checkpoint (the CoordNet under `npcs_net.`, the
+    rotation net under `net.`, reference trainer.py:159-170) -> (coord
+    variables, rot variables)."""
+    sd = load_torch_state_dict(path)
+    return (convert_coordnet(sd, cfg, prefix="npcs_net"),
+            convert_rotnet(sd, cfg, prefix="net"))

@@ -409,14 +409,23 @@ class Trainer:
         """The draws of one train step on `batch` from `generator`: the
         pose noise (none when the batch carries its `init_pose`) and, for a
         symmetric CoordNet, the NOCS pairwise sample over the GT labels."""
+        return self.draw_for(batch["labels"], "init_pose" in batch,
+                             generator)
+
+    def draw_for(self, labels, init_pose: bool,
+                 generator: torch.Generator) -> dict:
+        """`draw` for a batch of GT labels [B, N] that carries its
+        `init_pose` or not."""
+        labels = torch.as_tensor(labels)
         draws = {}
-        if "init_pose" not in batch:
+        if not init_pose:
             draws["noise"] = draw_pose_noise(
-                batch["pose"].scale.shape, self.cfg.perturb.kind, generator)
+                (labels.shape[0], self.cfg.obj.num_parts),
+                self.cfg.perturb.kind, generator)
         if self.cfg.network.type == "canon_coord" and self.cfg.obj.sym:
             draws["pwm_idx"] = L.draw_pwm_indices(
-                torch.as_tensor(batch["labels"]).to(generator.device),
-                self.cfg.network.pwm_num, generator)
+                labels.to(generator.device), self.cfg.network.pwm_num,
+                generator)
         return draws
 
     def train_step(self, state: TrainState, batch: dict,

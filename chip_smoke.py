@@ -28,15 +28,15 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 counters zeroed just before and read just after, launches
                 per tracked frame as predicted, poses finite and within 1e-4
                 of the same run with the plain FPS on the card, ms a step
-                (median of 5 runs of T - 1 steps), frames/s and the error to
-                the synthetic ground truth; each bfloat16 run against its
-                float32 twin (ms a step, the largest pose difference); for
-                information only, the first tracked frame against the port's
-                CPU run.
+                (median of REPEATS = 3 runs of T - 1 steps), frames/s and
+                the error to the synthetic ground truth; each bfloat16 run
+                against its float32 twin (ms a step, the largest pose
+                difference); for information only, the first tracked frame
+                against the port's CPU run.
   4. otf     -- the OTF tracking path (`nocs_otf`: raw 480x640 depth ->
                 backprojection and ball crop on the card -> FPS of the
                 20480-point working set to 4096 -> the nets), same weights,
-                depth video from `data/depth_frames.py` (T frames), crop
+                depth video from `data/depth_frames.py` (OTF_T frames), crop
                 shifts from the seed, in the runs of OTF_RUNS: B=1 (crop ->
                 fps_cuda_wide's cluster), B=1 with CAPTRA_FPS_BLOCKED=1
                 (crop -> fps_cuda_blocked; poses must equal the B=1 run's),
@@ -51,7 +51,7 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 frame: the kernel's time on the main path).
   5. init_search -- the GT-less init on the slice's B=1 trajectory:
                 init_pose_from_cloud, search_init_orientation over K=64
-                candidates on frame 0 (median of 5 searches, counters zeroed
+                candidates on frame 0 (median of 3 searches, counters zeroed
                 around them, the pose against the plain FPS's), then
                 tracking from the found pose as a slice run; the search's
                 FPS inputs are recorded and the kernel held against the
@@ -73,7 +73,12 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 metric.  The twin run's FPS inputs are recorded and each
                 kernel held against the plain FPS on them.  Frames/s as
                 the CLI prints it, ms a step, checkpoint load and evaluate
-                seconds, the AVG metrics.
+                seconds, the AVG metrics.  Then a composed checkpoint in
+                the reference's torch layout (seeded, the bottle's full
+                width), written with `torch.save` and read by
+                `convert_track_checkpoint`: its nets track the slice's B=1
+                trajectory (-> fps_cuda_wide), poses finite and within
+                1e-4 of the same trees loaded as pickle checkpoints.
   7. data    -- the track CLI on datasets on disk, written from the seed
                 in a temporary directory with the script's own writers (a
                 PNG encoder of its own: no OpenCV): the SAPIEN laptop's
@@ -95,7 +100,10 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 `otf_frame_from_depth` on one frame of the NOCS scene
                 against the plain FPS.  Reader seconds a frame cold (the
                 CLI's reads, SAPIEN writing its cache) and warm, ms a step
-                and frames/s as the CLI prints them.
+                and frames/s as the CLI prints them.  One SAPIEN laptop
+                frame read with `read_cloud(perturb=True)` (the depth-sensor
+                augmentation, the blur without OpenCV): seconds and pixels
+                relabelled.
   8. train   -- training at the configs' full width (SAPIEN laptop,
                 batch 12, 4096 points, `pointnet2_camera`; seeded nets, a
                 fixed `make_frame_batch` batch, draws from a seeded card
@@ -119,12 +127,28 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 for one epoch on NOCS fixtures written from the seed; each
                 CLI's FPS launches as `route` predicts, and the kernels
                 held on the first CoordNet run's FPS inputs.
-  9. summary -- JSON lines of the paths and of the kernels, then, as the
+  9. rollout -- on-policy rollout fine-tuning at the JAX script's
+                defaults (NOCS bottle, 4096 points, bfloat16, GN,
+                traj_batch 16 x 20 frames, minibatch 12, a pool of 512
+                geometries; the seeded nets as pickle checkpoints): round 1
+                with the kernels against the same round with the plain FPS
+                on the card (deterministic algorithms, the same draws:
+                logs, parameters, statistics and moments equal bit for
+                bit), its FPS launches as `route` predicts (19 tracked
+                frames x 4 and 25 minibatches x 4, all fps_cuda_batched),
+                the kernels held on its recorded inputs; the host syncs of
+                a round; a timed round (the rollout timed apart) and its
+                peak memory; then `cli.rollout_finetune.main` for
+                ROLLOUT_ROUNDS rounds (the script's 100 cut), evaluated at
+                rounds 0 and ROLLOUT_ROUNDS: launches, finite logs,
+                EVIDENCE.json, the checkpoints loaded back.
+ 10. summary -- JSON lines of the paths and of the kernels, then, as the
                 last line, {"ok": true, "device": {...}}.
 
 --profile DIR adds a torch.profiler window over a few tracked frames to each
-run (kernel time by name and family, the device's busy share, FPS's
-share of the step, host syncs) and writes the full tables into DIR.
+run and over a fine-tune round (kernel time by name and family, the
+device's busy share, FPS's share of the step, host syncs) and writes the
+full tables into DIR.
 
 Without a CUDA device the script exits with code 2 and prints no result.
 """
@@ -149,7 +173,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 T = 20                      # frames per trajectory (T - 1 tracked)
-REPEATS = 5                 # timed trajectories per B
+OTF_T = 12                  # frames of the OTF depth video
+REPEATS = 3                 # timed trajectories per B
 POSE_TOL = 1e-4
 # H100 SXM data-sheet peaks (dense, no sparsity) for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -399,12 +424,16 @@ def fps_bound(B: int, N: int, npoint: int, sweeps: int | None = None):
                                    else "operations")
 
 
-def phase_device() -> None:
-    smi = subprocess.run(
+def card_name_and_limit() -> str:
+    """The card's name and power limit as `nvidia-smi` gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    log(smi)
+
+
+def phase_device() -> None:
+    log(card_name_and_limit())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
@@ -1357,7 +1386,96 @@ def phase_cli(kernels: dict) -> dict:
                 f"it, {out[name]['ms_per_step']:.2f} ms a step of B={B}; "
                 f"FPS launches a tracked frame "
                 f"{_frame_launches(launches, steps)}")
+        out["reference_pt"] = check_reference_checkpoint(tmp, dev)
     return out
+
+
+def port_helpers():
+    """`tests/torch_port_helpers.py` of this checkout, loaded by path (a
+    package named `tests` elsewhere on the path may shadow the
+    directory); it imports numpy and, in the functions used here, torch."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_helpers", os.path.join(ROOT, "tests",
+                                           "torch_port_helpers.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_reference_checkpoint(tmp: str, dev: torch.device) -> dict:
+    """A composed tracking checkpoint in the reference's torch layout
+    (`npcs_net.*`, `net.*`; `tests/torch_port_helpers.py`'s seeded
+    reference state dict at the bottle's full width) written with
+    `torch.save`, read by `convert_track_checkpoint`, its nets tracking the
+    slice's B=1 trajectory on the card (counters zeroed just before, read
+    just after: sa1 -> fps_cuda_wide); poses finite and within POSE_TOL of
+    the same variables written as pickle checkpoints and loaded back as
+    flax trees (`checkpoint.load_track_variables`)."""
+    from captra_tpu_torch.config.presets import nocs_bottle
+    from captra_tpu_torch.data.synthetic import (
+        batch_trajectories, make_trajectory,
+    )
+    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.pose.part_dof import Pose
+    from captra_tpu_torch.tracking.tracker import (
+        make_track_step, track_trajectory,
+    )
+    from captra_tpu_torch.training import checkpoint
+    from captra_tpu_torch.training.convert import (
+        convert_track_checkpoint, coordnet_from_flax, rotnet_from_flax,
+    )
+    cfg = nocs_bottle()
+    path = os.path.join(tmp, "reference.pt")
+    torch.save({"epoch": 0, "iteration": 0,
+                "model": port_helpers().reference_track_state_dict(
+                    cfg, seed=SEED),
+                "optimizer": {"state": {}, "param_groups": []}}, path)
+    t0 = time.perf_counter()
+    cv, rv = convert_track_checkpoint(path, cfg)
+    convert_s = time.perf_counter() - t0
+    d = batch_trajectories([make_trajectory(seed=100, obj=cfg.obj,
+                                            num_frames=T,
+                                            num_points=cfg.num_points)])
+    init = Pose(*(torch.from_numpy(d[k][0]).to(dev)
+                  for k in ("rotation", "translation", "scale")))
+    points = torch.from_numpy(d["points"]).to(dev)
+
+    def track(coord_vars, rot_vars):
+        step = make_track_step(cfg, coordnet_from_flax(cfg, coord_vars, dev)
+                               .eval(), rotnet_from_flax(cfg, rot_vars, dev)
+                               .eval(), device=dev)
+        return track_trajectory(step, init, {"points": points}, device=dev)
+
+    sync(dev)
+    fps.reset_launch_counts()
+    _, aux = track(cv, rv)
+    sync(dev)
+    launches = dict(fps.launch_counts)
+    want = {k: predicted_launches(cfg, 1).get(k, 0) * (T - 1)
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"cli reference .pt: FPS launches {launches}, "
+                             f"expected {want}")
+    dirs = [os.path.join(tmp, "reference_pt", n) for n in ("coord", "rot")]
+    for d_, v in zip(dirs, (cv, rv)):
+        checkpoint.save_checkpoint(d_, 0, v)
+    fv = checkpoint.load_track_variables(*(os.path.join(d_, "model_0000")
+                                           for d_ in dirs))
+    _, twin = track(*fv)
+    for f in ("rotation", "translation", "scale"):
+        if not bool(torch.isfinite(getattr(aux.pose, f)).all()):
+            raise AssertionError(f"cli reference .pt: non-finite {f}")
+    diff = _max_pose_diff(aux.pose, twin.pose)
+    if max(diff.values()) > POSE_TOL:
+        raise AssertionError(f"cli reference .pt: poses differ from the "
+                             f"flax trees' by {diff}")
+    log(f"cli reference .pt: {os.path.getsize(path) / 2**20:.1f} MiB "
+        f"torch.save'd composed checkpoint, read and converted in "
+        f"{convert_s:.3f} s; tracked B=1 x {T} frames on {dev}, FPS "
+        f"launches a tracked frame {_frame_launches(launches, T - 1)}; "
+        f"poses finite, against the flax trees' max |diff| {diff}")
+    return dict(launches=launches, convert_s=convert_s, max_pose_diff=diff)
 
 
 # the data phase: datasets on disk through the track CLI (flags on top of
@@ -1583,6 +1701,39 @@ def _timed_reads(sequences, clock: list):
     return wrapped
 
 
+def check_sapien_perturb(root: str) -> dict:
+    """One SAPIEN laptop frame of the fixtures read with
+    `read_cloud(perturb=True)` (depth-sensor noise and the blur of
+    `data/blur.py`, draws from a RandomState of SEED): its seconds, and
+    the pixels the perturbation moved more than 5 cm (relabelled), counted
+    again from a twin RandomState."""
+    from captra_tpu_torch.data import sapien
+    path = os.path.join(root, "render_seq", "laptop",
+                        DATA_SAPIEN_INSTANCES[0], "0000", "cloud", "0.npz")
+    cd = np.load(path, allow_pickle=True)["all_dict"].item()
+    t0 = time.perf_counter()
+    pts, seg = sapien.read_cloud(cd, 4096, np.random.RandomState(SEED),
+                                 num_parts=2, perturb=True)
+    seconds = time.perf_counter() - t0
+    depth = np.asarray(cd["depth"])
+    plain, _ = sapien.opengl_depth_to_points(cd)
+    pert = dict(cd, depth=sapien.perturb_depth(
+        depth.astype(np.float64), depth < 1, np.random.RandomState(SEED)))
+    moved, _ = sapien.opengl_depth_to_points(pert, pixel_mask=depth < 1)
+    shift = np.linalg.norm(plain - moved, axis=-1)
+    relabelled = int((shift > 0.05).sum())
+    if pts.shape != (4096, 3) or not np.isfinite(pts).all():
+        raise AssertionError(f"data sapien perturb: points {pts.shape}")
+    log(f"data sapien perturb: read_cloud(perturb=True) of a "
+        f"{depth.shape[0]}x{depth.shape[1]} laptop frame in {seconds:.3f} s; "
+        f"{len(plain)} pixels, {relabelled} moved > 5 cm (relabelled), "
+        f"median shift {float(np.median(shift)) * 1e3:.3f} mm, max "
+        f"{float(shift.max()) * 1e3:.3f} mm")
+    return dict(seconds=seconds, pixels=len(plain), relabelled=relabelled,
+                median_shift_m=float(np.median(shift)),
+                max_shift_m=float(shift.max()))
+
+
 def phase_data(kernels: dict) -> dict:
     """The track CLI on the card on datasets on disk (DATA_RUNS), written
     at 480x640 in a temporary directory from SEED, from checkpoints of the
@@ -1753,6 +1904,8 @@ def phase_data(kernels: dict) -> dict:
         log(f"data: host core FPS [{len(cloud)}]->{cfg.num_points} "
             f"{out['host_fps_ms']:.1f} ms (median of 3; min "
             f"{min(host_ms):.1f}, max {max(host_ms):.1f})")
+
+        out["sapien_perturb"] = check_sapien_perturb(root)
 
         # otf_frame_from_depth on frame 0 of the NOCS scene, kernels against
         # the plain FPS
@@ -2134,11 +2287,258 @@ def phase_train(kernels: dict) -> dict:
     return out
 
 
+# the rollout phase: `cli.rollout_finetune.main` at the JAX script's
+# defaults (NOCS bottle, 4096 points, `pointnet2_camera`, bfloat16, GN,
+# traj_batch 16, 20 frames, minibatch 12, a pool of 512 geometries) for
+# ROLLOUT_ROUNDS rounds (the script's default is 100), evaluated at round 0
+# and the last
+ROLLOUT_ROUNDS = 2
+ROLLOUT_WHERE = "a fine-tune round's FPS inputs, ms a round"
+
+
+def rollout_launches(cfg_track, cfgs: dict, args) -> tuple[dict, dict]:
+    """(FPS launches of a fine-tune round, of an evaluation of the
+    held-out set) as `route` predicts them: each tracked frame of
+    traj_batch trajectories (`predicted_launches`), then each minibatch's
+    and plain step's train step of each trained net (`train_launches`)."""
+    from collections import Counter
+    n_mb = (args.frames - 1) * args.traj_batch // args.minibatch
+    nets = ("rot",) if args.freeze_coord else ("canon_coord", "rot")
+    per_round = Counter()
+    for k, v in predicted_launches(cfg_track, args.traj_batch).items():
+        per_round[k] += v * (args.frames - 1)
+    for net in nets:
+        for k, v in train_launches(cfgs[net], args.minibatch).items():
+            per_round[k] += v * (n_mb + args.plain_steps)
+    per_eval = {k: v * (args.eval_frames - 1) for k, v in
+                predicted_launches(cfg_track, args.eval_trajs).items()}
+    return dict(per_round), per_eval
+
+
+def rollout_states_equal(a: dict, b: dict) -> bool:
+    """Two runs' train states hold the same parameters, statistics and
+    optimizer moments and steps, bit for bit."""
+    for net in a:
+        x, y = a[net], b[net]
+        if x.step != y.step or not torch.equal(x.params, y.params):
+            return False
+        for k, v in x.opt_state.items():
+            if torch.is_tensor(v) and not torch.equal(v, y.opt_state[k]):
+                return False
+        if not all(torch.equal(p, q) for (_, p), (_, q) in zip(
+                x.module.named_buffers(), y.module.named_buffers())
+                if p.is_floating_point()):
+            return False
+    return True
+
+
+def phase_rollout(kernels: dict, profile: str | None = None) -> dict:
+    """On-policy rollout fine-tuning on the card: the seeded nets written
+    as JAX-layout pickle checkpoints, then (1) round 1 of
+    `cli.rollout_finetune.setup`'s round from the states and, from copies,
+    with the plain FPS on the card, under torch's deterministic algorithms
+    and on the same draws: logs, parameters, statistics and moments equal
+    bit for bit, FPS launches as `route` predicts (counters zeroed just
+    before, read just after), the kernels held on the round's recorded
+    inputs; (2) the host syncs of a round (CUDA's sync debug mode); (3) a
+    timed round (the rollout's tracking timed apart), its peak memory;
+    (4) `cli.rollout_finetune.main` for ROLLOUT_ROUNDS rounds, evaluated
+    at round 0 and the last: launches as predicted, finite logs,
+    EVIDENCE.json with both points, the round checkpoints loaded back.
+    With `profile` a profiler window over round 3."""
+    from captra_tpu_torch.cli import rollout_finetune as rcli
+    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.training import checkpoint
+    from captra_tpu_torch.training import rollout
+    from captra_tpu_torch.training.trainer import Trainer
+
+    dev = torch.device("cuda")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="captra_rollout_") as tmp:
+        paths = {n: os.path.join(tmp, n, "ckpt", "model_0000")
+                 for n in ("coord", "rot")}
+        argv = ["--coord", paths["coord"], "--rot", paths["rot"], "--out",
+                os.path.join(tmp, "out"), "--rounds", str(ROLLOUT_ROUNDS),
+                "--eval_at", str(ROLLOUT_ROUNDS)]
+        args = rcli.parse(argv)
+        cfg_track, cfgs = rcli.configs(args)
+        write_checkpoints(cfg_track, dev, os.path.dirname(os.path.dirname(
+            paths["coord"])), os.path.dirname(os.path.dirname(paths["rot"])))
+        per_round, per_eval = rollout_launches(cfg_track, cfgs, args)
+        n_mb = (args.frames - 1) * args.traj_batch // args.minibatch
+        steps = n_mb + args.plain_steps
+        log(f"rollout: {cfg_track.obj.name}, {cfg_track.num_points} points, "
+            f"{args.dtype} {args.norm}, traj_batch {args.traj_batch} x "
+            f"{args.frames} frames, {n_mb} minibatches of {args.minibatch} "
+            f"+ {args.plain_steps} plain steps a round, pool "
+            f"{args.geom_pool}; FPS launches predicted a round {per_round}, "
+            f"an evaluation {per_eval}")
+
+        t0 = time.perf_counter()
+        run = rcli.setup(args, dev)
+        sync(dev)
+        setup_s = time.perf_counter() - t0
+        round_fn, trainers, states = (run["round_fn"], run["trainers"],
+                                      run["states"])
+        nets = ("canon_coord", "rot")
+        twins = {n: trainers[n].copy_state(states[n]) for n in nets}
+        draws = round_fn.draw(rcli.round_generator(dev, 1))
+        calls, alerts = {}, set()
+        with deterministic_algorithms(alerts):
+            sync(dev)
+            fps.reset_launch_counts()
+            with recording_fps(calls):
+                _, _, logs = round_fn(states["canon_coord"], states["rot"],
+                                      draws=draws)
+            sync(dev)
+            launches = {k: v for k, v in fps.launch_counts.items() if v}
+            with plain_fps_on_card():
+                _, _, plain = round_fn(twins["canon_coord"], twins["rot"],
+                                       draws=draws)
+        equal = (sorted(logs) == sorted(plain) and all(
+            torch.equal(logs[k], v) for k, v in plain.items())
+            and rollout_states_equal(states, twins))
+        log(f"rollout round 1 with the kernels against the plain FPS "
+            f"(deterministic algorithms, the same draws): logs, parameters, "
+            f"statistics and moments {'equal' if equal else 'DIFFER'}; "
+            f"without a deterministic version: {sorted(alerts) or 'none'}")
+        if not equal:
+            raise AssertionError("rollout: round 1 with the kernels differs "
+                                 "from the plain FPS's")
+        if launches != per_round:
+            raise AssertionError(f"rollout: FPS launches a round {launches}, "
+                                 f"expected {per_round}")
+        logs = {k: float(v) for k, v in logs.items()}
+        if not np.isfinite(list(logs.values())).all():
+            raise AssertionError(f"rollout: non-finite logs {logs}")
+        del twins
+        by_shape = {}
+        for (n, npoint), clouds in calls.items():
+            for xyz in clouds:
+                by_shape.setdefault((xyz.shape[0], n, npoint),
+                                    []).append(xyz)
+        for (b, n, npoint), clouds in sorted(by_shape.items()):
+            check_video(fps, kernels, (fps.route(b, n),), clouds, npoint,
+                        "round 1", 1, ROLLOUT_WHERE, path="rollout",
+                        unit="round")
+        del calls, by_shape
+        torch.cuda.empty_cache()
+
+        def one_round(r):
+            return round_fn(states["canon_coord"], states["rot"],
+                            generator=rcli.round_generator(dev, r))
+
+        # round 2: wall clock between two syncs, its host syncs, and the
+        # rollout's span on the card between two CUDA events (which
+        # synchronise nothing)
+        spans = []
+        collect = rollout.collect_states
+
+        def timed_collect(*a, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            res = collect(*a, **kw)
+            end.record()
+            spans.append((start, end))
+            return res
+
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rollout.collect_states = timed_collect
+        try:
+            t = time.perf_counter()
+            syncs = _host_syncs(lambda: one_round(2))
+            sync(dev)
+            round_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            rollout.collect_states = collect
+        peak = torch.cuda.max_memory_allocated(dev)
+        rollout_ms = [a.elapsed_time(b) for a, b in spans]
+        for msg in sorted(set(syncs)):
+            log(f"rollout: host sync in a round: {msg}")
+        prof = (profile_window(lambda: one_round(3), 1, args.traj_batch,
+                               profile, tag="rollout_round")
+                if profile else None)
+        step_ms = (round_ms - rollout_ms[0]) / (2 * steps)
+        log(f"rollout: a round {round_ms / 1e3:.3f} s: the rollout "
+            f"({args.frames - 1} tracked steps of {args.traj_batch}; its "
+            f"span on the card) "
+            f"{rollout_ms[0]:.1f} ms ({rollout_ms[0] / (args.frames - 1):.2f}"
+            f" ms a step), the rest {round_ms - rollout_ms[0]:.1f} ms over "
+            f"{2 * steps} train steps ({step_ms:.2f} ms a step, trajectory "
+            f"synthesis and harvest included); {len(syncs)} host syncs a "
+            f"round; peak {peak / 2**30:.2f} GiB; round 1 logs {logs}; on "
+            f"{card_name_and_limit()}")
+        del run, states, trainers, round_fn
+        torch.cuda.empty_cache()
+
+        sync(dev)
+        fps.reset_launch_counts()
+        text, report, main_s = _printed(rcli.main, argv, device=dev)
+        main_launches = {k: v for k, v in fps.launch_counts.items() if v}
+        for line in text.strip().splitlines():
+            log(f"  | {line}")
+        want = {k: ROLLOUT_ROUNDS * per_round.get(k, 0)
+                + 2 * per_eval.get(k, 0)
+                for k in set(per_round) | set(per_eval)}
+        if main_launches != want:
+            raise AssertionError(f"rollout main: FPS launches "
+                                 f"{main_launches}, expected {want}")
+        printed = [dict((k, float(v)) for k, v in re.findall(
+            r"(\w+)=([-0-9.naif]+)", ln)) for ln in text.splitlines()
+            if ln.startswith("round ")]
+        with open(os.path.join(args.out, "EVIDENCE.json")) as fh:
+            evidence = json.load(fh)
+        if (not printed or not all(np.isfinite(list(p.values())).all()
+                                   for p in printed)
+                or sorted(evidence["trend"]) != ["0", str(ROLLOUT_ROUNDS)]
+                or evidence != json.loads(json.dumps(report))):
+            raise AssertionError(f"rollout main: logs {printed}, trend "
+                                 f"{sorted(evidence['trend'])}")
+        for point in evidence["trend"].values():
+            if not np.isfinite(list(point["full"].values())).all():
+                raise AssertionError(f"rollout main: evaluation {point}")
+        loaded = {}
+        for n in nets:
+            payload = checkpoint.load_checkpoint(os.path.join(
+                args.out, f"round_{ROLLOUT_ROUNDS}", n, "ckpt",
+                "model_0000"))
+            state = checkpoint.restore_state(payload, Trainer(
+                cfgs[n], device=dev).init_state(
+                    generator=torch.Generator().manual_seed(SEED)))
+            loaded[n] = state.step
+        if loaded != {n: ROLLOUT_ROUNDS * steps for n in nets}:
+            raise AssertionError(f"rollout main: checkpoint steps {loaded}")
+        out = dict(
+            rounds=ROLLOUT_ROUNDS, traj_batch=args.traj_batch,
+            frames=args.frames, minibatch=args.minibatch,
+            dtype=args.dtype, norm=args.norm, setup_s=setup_s,
+            round_s=round_ms / 1e3, rollout_ms=rollout_ms[0],
+            rollout_ms_per_step=rollout_ms[0] / (args.frames - 1),
+            train_ms_per_step=step_ms, host_syncs_per_round=len(syncs),
+            host_syncs=sorted(set(syncs)), peak_bytes=peak,
+            launches_per_round=per_round, launches_per_eval=per_eval,
+            launches=launches, main_launches=main_launches,
+            main_s=main_s, round1_logs=logs, plain_fps_equal=True,
+            nondeterministic_ops=sorted(alerts),
+            eval={k: v["full"] for k, v in evidence["trend"].items()},
+            checkpoint_steps=loaded, profile=prof)
+        log(f"rollout main: {ROLLOUT_ROUNDS} rounds and 2 evaluations in "
+            f"{main_s:.2f} s, FPS launches {main_launches}; evaluation "
+            f"(full) at round 0 {evidence['trend']['0']['full']}, at round "
+            f"{ROLLOUT_ROUNDS} {evidence['trend'][str(ROLLOUT_ROUNDS)]['full']}"
+            f"; checkpoints of round {ROLLOUT_ROUNDS} loaded back at steps "
+            f"{loaded}; on {card_name_and_limit()}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
                         help="add a torch.profiler window at each B and "
-                             "OTF run and write its tables into DIR")
+                             "OTF run and over a fine-tune round, and write "
+                             "its tables into DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2159,8 +2559,8 @@ def main() -> int:
     sliced = phase_slice(profile=args.profile)
     check_launches(sliced)
     lap("slice")
-    otf = phase_otf(profile=args.profile, kernels=kernels)
-    check_otf_launches(otf)
+    otf = phase_otf(profile=args.profile, kernels=kernels, frames=OTF_T)
+    check_otf_launches(otf, OTF_T)
     lap("otf")
     init = phase_init_search(profile=args.profile, kernels=kernels)
     lap("init_search")
@@ -2170,6 +2570,8 @@ def main() -> int:
     lap("data")
     train = phase_train(kernels=kernels)
     lap("train")
+    roll = phase_rollout(kernels=kernels, profile=args.profile)
+    lap("rollout")
 
     line = []
     for name, cases in kernels.items():
@@ -2189,7 +2591,9 @@ def main() -> int:
                    **{f"train_{r}": v["launches"].get(name, 0)
                       for r, v in train["runs"].items()},
                    **{f"train_cli_{r}": v["launches"].get(name, 0)
-                      for r, v in train["cli"].items()}}
+                      for r, v in train["cli"].items()},
+                   "rollout_round1": roll["launches"].get(name, 0),
+                   "rollout_main": roll["main_launches"].get(name, 0)}
         line.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
@@ -2208,6 +2612,7 @@ def main() -> int:
     log(json.dumps({"cli": cli}))
     log(json.dumps({"data": data}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"rollout": roll}))
     log(json.dumps({"seconds": seconds}))
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -464,3 +464,119 @@ def test_device_pose_batch_on_the_card_matches_the_cpu(card):
     for f in ("rotation", "translation", "scale"):
         assert float((getattr(got["pose"], f).cpu()
                       - getattr(want["pose"], f)).abs().max()) <= 1e-6, f
+
+
+def test_device_trajectory_batch_on_the_card_matches_the_cpu(card):
+    from captra_tpu_torch.config.presets import nocs_bottle
+    from captra_tpu_torch.data.synthetic import (
+        device_trajectory_batch, draw_trajectory_batch, geometry_pool,
+    )
+    cfg = nocs_bottle()
+    B, T = 16, 20
+    pool = geometry_pool(0, cfg.obj, count=B, num_points=cfg.num_points)
+    draws = draw_trajectory_batch(B, cfg.num_points, cfg.obj.num_parts, T,
+                                  torch.Generator(card).manual_seed(0))
+    args = [torch.from_numpy(pool[k]) for k in ("npcs", "labels",
+                                                  "corners")]
+    got = device_trajectory_batch(*[a.to(card) for a in args], cfg.obj,
+                                  num_frames=T, draws=draws)
+    want = device_trajectory_batch(*args, cfg.obj, num_frames=T,
+                                   draws={k: v.cpu() for k, v in
+                                          draws.items()})
+    assert got["points"].is_cuda and got["points"].shape == (
+        T, B, cfg.num_points, 3)
+    for k in ("points", "nocs", "corners"):
+        assert float((got[k].cpu() - want[k]).abs().max()) <= 1e-6, k
+    for f in ("rotation", "translation", "scale"):
+        assert float((getattr(got["pose"], f).cpu()
+                      - getattr(want["pose"], f)).abs().max()) <= 1e-6, f
+
+
+def test_rollout_round_on_the_card_matches_plain_fps(card, monkeypatch):
+    """A small fine-tune round (2 trajectories of 3 frames, minibatches of
+    2) of the full-width bottle nets with the FPS kernels against the same
+    round, from copies of the states, with the plain FPS on the card,
+    under torch's deterministic algorithms: equal bit for bit (logs,
+    parameters, statistics, moments).  FPS launches as `route` predicts:
+    2 tracked frames and 2 minibatches x 2 nets, 2 sweeps a net each."""
+    from captra_tpu_torch.config import get_config
+    from captra_tpu_torch.config.presets import nocs_bottle
+    from captra_tpu_torch.data.synthetic import geometry_pool
+    from captra_tpu_torch.ops import pointops
+    from captra_tpu_torch.training.rollout import make_finetune_round
+    from captra_tpu_torch.training.trainer import Trainer
+    over = {"obj_config": "obj_info_nocs.yml", "obj_category": "1"}
+    cfg = nocs_bottle()
+    trainers = [Trainer(get_config(c, over), 100, device=card)
+                for c in ("config_coordnet.yml", "config_rotnet.yml")]
+    gen = torch.Generator().manual_seed(0)
+    states = [t.init_state(generator=gen) for t in trainers]
+    twins = [t.copy_state(s) for t, s in zip(trainers, states)]
+    pool = geometry_pool(0, cfg.obj, count=8, num_points=cfg.num_points)
+    round_fn = make_finetune_round(cfg, *trainers, pool, traj_batch=2,
+                                   traj_frames=3, minibatch=2, device=card)
+    draws = round_fn.draw(torch.Generator(card).manual_seed(1))
+    fps.reset_launch_counts()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, _, logs = round_fn(*states, draws=draws)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in fps.launch_counts.items() if v}
+        monkeypatch.setattr(pointops, "farthest_point_sample_indices",
+                            fps.fps_plain)
+        _, _, plain = round_fn(*twins, draws=draws)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert launches == {"fps_cuda_wide": 8, "fps_cuda_batched": 8}
+    assert sorted(logs) == sorted(plain)
+    for k, v in plain.items():
+        assert torch.isfinite(v) and torch.equal(logs[k], v), k
+    for s, t in zip(states, twins):
+        assert s.step == t.step == 2
+        assert torch.equal(s.params, t.params)
+        for name in ("mu", "nu"):
+            assert torch.equal(s.opt_state[name], t.opt_state[name])
+        for (name, a), (_, b) in zip(s.module.named_buffers(),
+                                     t.module.named_buffers()):
+            if a.is_floating_point():
+                assert torch.equal(a, b), name
+
+
+def test_reference_checkpoint_nets_on_the_card(card, tmp_path):
+    """A reference-layout composed `.pt` through `convert_track_checkpoint`:
+    the nets on the card track the bottle at B=1 (sa1 -> fps_cuda_wide)
+    within 1e-4 of the same nets on the CPU."""
+    from torch_port_helpers import reference_track_state_dict
+
+    from captra_tpu_torch.config.presets import nocs_bottle
+    from captra_tpu_torch.data.synthetic import (
+        batch_trajectories, make_trajectory,
+    )
+    from captra_tpu_torch.tracking.tracker import (
+        make_track_step, track_trajectory,
+    )
+    from captra_tpu_torch.training.convert import (
+        convert_track_checkpoint, coordnet_from_flax, rotnet_from_flax,
+    )
+    cfg = nocs_bottle()
+    path = str(tmp_path / "ref.pt")
+    torch.save({"epoch": 0, "iteration": 0,
+                "model": reference_track_state_dict(cfg, seed=0),
+                "optimizer": {"state": {}, "param_groups": []}}, path)
+    cv, rv = convert_track_checkpoint(path, cfg)
+    data = batch_trajectories([make_trajectory(0, cfg.obj, num_frames=4,
+                                               num_points=cfg.num_points)])
+    poses = {}
+    fps.reset_launch_counts()
+    for dev in (card, torch.device("cpu")):
+        step = make_track_step(cfg, coordnet_from_flax(cfg, cv, dev).eval(),
+                               rotnet_from_flax(cfg, rv, dev).eval(),
+                               device=dev)
+        _, aux = track_trajectory(step, data["pose"][0],
+                                  {"points": data["points"]}, device=dev)
+        poses[dev.type] = aux.pose
+    assert fps.launch_counts["fps_cuda_wide"] == 2 * 3
+    for f in ("rotation", "translation", "scale"):
+        got = getattr(poses["cuda"], f).cpu()
+        assert torch.isfinite(got).all(), f
+        assert float((got - getattr(poses["cpu"], f)).abs().max()) <= 1e-4, f

@@ -14,6 +14,7 @@ import torch
 
 from captra_tpu_torch.cli import evaluate as evaluate_cli
 from captra_tpu_torch.cli import finetune as finetune_cli
+from captra_tpu_torch.cli import rollout_finetune as rollout_cli
 from captra_tpu_torch.cli import track as track_cli
 from captra_tpu_torch.cli import train as train_cli
 from captra_tpu_torch.config import get_config, schema
@@ -27,6 +28,9 @@ from captra_tpu_torch.tracking.tracker import (
     track_trajectory,
 )
 from captra_tpu_torch.training.convert import coordnet_from_flax
+from captra_tpu_torch.training.rollout import (
+    collect_states, make_finetune_round,
+)
 from captra_tpu_torch.training.trainer import Trainer
 from tests.torch_port_helpers import tiny_config
 
@@ -77,16 +81,19 @@ def test_sources_import_no_jax():
 
 @pytest.mark.parametrize("module", [
     "captra_tpu_torch.cli.train", "captra_tpu_torch.cli.finetune",
-    "captra_tpu_torch.training.trainer", "captra_tpu_torch.models.losses"])
+    "captra_tpu_torch.training.trainer", "captra_tpu_torch.models.losses",
+    "captra_tpu_torch.training.rollout",
+    "captra_tpu_torch.cli.rollout_finetune", "captra_tpu_torch.data.blur",
+    "captra_tpu_torch.data.sapien", "captra_tpu_torch.training.convert"])
 def test_training_entry_points_import_with_jax_blocked(module):
     """The training modules import in a process where importing jax,
-    flax, optax, orbax or captra_tpu fails."""
+    flax, optax, orbax, captra_tpu or cv2 fails."""
     code = (
         "import sys, importlib.abc\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'flax', 'optax', 'orbax',\n"
-        "                                  'captra_tpu'):\n"
+        "                                  'captra_tpu', 'cv2'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         f"import {module}\n"
@@ -133,6 +140,12 @@ def _entry_points(cfg):
             cfg.network, type="canon_coord"))),
         "cli.train.main": lambda: train_cli.main(["--synthetic_data"]),
         "cli.finetune.main": lambda: finetune_cli.main([]),
+        "collect_states": lambda: collect_states(cfg, None, None, {},
+                                                 Pose.identity((1, 1))),
+        "make_finetune_round": lambda: make_finetune_round(
+            cfg, None, None, {}, traj_batch=1, traj_frames=2, minibatch=1),
+        "cli.rollout_finetune.main": lambda: rollout_cli.main(
+            ["--coord", "c", "--rot", "r", "--out", "o"]),
     }
 
 

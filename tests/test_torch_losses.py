@@ -36,7 +36,7 @@ from captra_tpu_torch.training.convert import (
     flax_variables, load_flax_variables,
 )
 from tests.torch_port_helpers import (
-    jax_pwm_indices, perturb, tiny_config, to_numpy,
+    jax_pose_batch_draws, jax_pwm_indices, perturb, tiny_config, to_numpy,
 )
 
 REL = 1e-6
@@ -332,18 +332,6 @@ def test_make_frame_batch_and_geometry_pool_exactly(obj):
                                       err_msg=k)
 
 
-def _jax_pose_batch_draws(key, B, N, P):
-    """The draws `device_pose_batch` makes from `key` (synthetic.py:255-
-    273), raw, under the port's names."""
-    k_q, k_t, k_s, k_j, k_n = jax.random.split(key, 5)
-    out = {"quat": jax.random.normal(k_q, (B, 4)),
-           "trans": jax.random.uniform(k_t, (B, 3)),
-           "scale": jax.random.uniform(k_s, (B,)),
-           "theta": jax.random.uniform(k_j, (B, P)),
-           "noise": jax.random.normal(k_n, (B, N, 3))}
-    return {k: _t(v) for k, v in out.items()}
-
-
 @pytest.mark.parametrize("obj", ["bottle", "laptop"])
 def test_device_pose_batch_matches_jax(obj):
     jo = tiny_config(jschema, obj).obj
@@ -356,7 +344,7 @@ def test_device_pose_batch_matches_jax(obj):
     got = tsyn.device_pose_batch(
         *map(torch.from_numpy, (pool["npcs"], pool["labels"],
                                 pool["corners"])), to,
-        draws=_jax_pose_batch_draws(key, 3, 64, to.num_parts))
+        draws=jax_pose_batch_draws(key, 3, 64, to.num_parts))
     for k in ("points", "nocs", "corners"):
         _close(got[k], want[k])
     for f in ("rotation", "translation", "scale"):

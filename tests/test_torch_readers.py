@@ -27,7 +27,8 @@ from captra_tpu.data import sapien as jsapien
 from captra_tpu.data import urdf as jurdf
 from captra_tpu.data.preproc_nocs import REAL_INTRINSICS, _project
 from captra_tpu_torch.config import schema as tschema
-from captra_tpu_torch.data import factory, nocs, nocs2d, real_arti, sapien
+from captra_tpu_torch.data import blur, factory, nocs, nocs2d, real_arti
+from captra_tpu_torch.data import sapien
 from captra_tpu_torch.data import urdf
 from tests.test_data import _write_fake_nocs
 from tests.test_sapien_data import (  # noqa: F401 (fixture)
@@ -247,13 +248,73 @@ def test_sapien_helpers_equal_jax(tmp_path):
         jsapien.base_generate_data(info, pts, seg, cam2world, link2world))
 
 
-def test_sapien_perturb_raises():
-    cd = _fake_cloud_dict(np.random.RandomState(0))
-    with pytest.raises(NotImplementedError, match="perturb"):
-        sapien.read_cloud(cd, 64, np.random.RandomState(0), perturb=True)
-    with pytest.raises(NotImplementedError, match="perturb_depth"):
-        sapien.perturb_depth(cd["depth"], cd["depth"] < 1,
-                             np.random.RandomState(0))
+@pytest.mark.parametrize("ksize", [3, 5, 7])
+def test_gaussian_blur_matches_opencv(ksize):
+    """`data/blur.py` against `cv2.GaussianBlur(img, (k, k), sigmaX)` on
+    float64 depth (sigma 0.2, the augmentation's, and a wide 1.5), within
+    1e-12; OpenCV is imported by this test only."""
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.RandomState(ksize)
+    for shape in ((32, 40), (5, 9), (120, 160)):
+        img = rng.uniform(0.3, 1.0, shape)
+        img[rng.rand(*shape) < 0.3] = 1.0
+        for sigma in (0.2, 1.5):
+            np.testing.assert_allclose(
+                blur.gaussian_blur(img, ksize, sigma),
+                cv2.GaussianBlur(img, (ksize, ksize), sigmaX=sigma),
+                rtol=0, atol=1e-12, err_msg=f"{shape} sigma {sigma}")
+        np.testing.assert_allclose(
+            blur.gaussian_kernel(ksize, 0.2),
+            cv2.getGaussianKernel(ksize, 0.2, ktype=cv2.CV_64F)[:, 0],
+            rtol=0, atol=1e-15)
+
+
+def _noisy_cloud_dict(seed):
+    """The SAPIEN test frame with per-pixel depth noise (a flat patch
+    backprojects to a lattice of FPS near-ties)."""
+    rng = np.random.RandomState(seed)
+    cd = _fake_cloud_dict(rng, H=48, W=64)
+    valid = cd["depth"] < 1
+    cd["depth"][valid] += rng.uniform(0, 0.01, valid.sum()).astype(
+        np.float32)
+    return cd
+
+
+def test_sapien_perturb_depth_matches_jax():
+    """The JAX function with OpenCV (this machine has it): the same draws
+    from the same RandomState (the pixel mask, the std, the normals, the
+    kernel size), the blur within 1e-12."""
+    pytest.importorskip("cv2")
+    for seed in range(4):
+        cd = _noisy_cloud_dict(seed)
+        depth = cd["depth"].astype(np.float64)
+        got_rng, want_rng = (np.random.RandomState(seed) for _ in range(2))
+        got = sapien.perturb_depth(depth, depth < 1, got_rng)
+        want = jsapien.perturb_depth(depth, depth < 1, want_rng)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+        assert got_rng.randint(1 << 30) == want_rng.randint(1 << 30)
+        assert not np.array_equal(got, depth)
+
+
+@pytest.mark.parametrize("num_parts", [None, 2])
+def test_sapien_read_cloud_perturbed_matches_jax(num_parts):
+    """`read_cloud(perturb=True)`: the FPS indices (so the labels, the
+    relabelled clutter included) equal, the points within 1e-6."""
+    pytest.importorskip("cv2")
+    for seed in range(3):
+        cd = _noisy_cloud_dict(seed)
+        got_rng, want_rng = (np.random.RandomState(seed) for _ in range(2))
+        got = sapien.read_cloud(cd, 600, got_rng, synthetic=True,
+                                num_parts=num_parts, perturb=True)
+        want = jsapien.read_cloud(cd, 600, synthetic=True,
+                                  num_parts=num_parts, rng=want_rng,
+                                  perturb=True)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-6)
+        assert got_rng.randint(1 << 30) == want_rng.randint(1 << 30)
+        plain = sapien.read_cloud(cd, 600, np.random.RandomState(seed),
+                                  synthetic=True, num_parts=num_parts)
+        assert not np.array_equal(got[0], plain[0])
 
 
 def test_urdf_model_info_equals_jax(tmp_path):

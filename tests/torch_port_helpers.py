@@ -162,3 +162,224 @@ def jax_train_draws(cfg, key, labels):
         draws["pwm_idx"] = torch.from_numpy(
             jax_pwm_indices(k_pwm, labels, cfg.network.pwm_num))
     return draws
+
+
+def jax_pose_batch_draws(key, B, N, P):
+    """The draws `device_pose_batch` makes from `key` (synthetic.py:255-
+    273), raw, under the port's names, as CPU tensors."""
+    import jax
+    import torch
+    k_q, k_t, k_s, k_j, k_n = jax.random.split(key, 5)
+    out = {"quat": jax.random.normal(k_q, (B, 4)),
+           "trans": jax.random.uniform(k_t, (B, 3)),
+           "scale": jax.random.uniform(k_s, (B,)),
+           "theta": jax.random.uniform(k_j, (B, P)),
+           "noise": jax.random.normal(k_n, (B, N, 3))}
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def jax_trajectory_draws(key, B, N, P, T):
+    """The draws `device_trajectory_batch` makes from `key`
+    (synthetic.py:329-348), raw, under the port's names, as CPU tensors."""
+    import jax
+    import torch
+    k_q, k_t, k_s, k_j, k_dj, k_ax, k_dt, k_n = jax.random.split(key, 8)
+    out = {"quat": jax.random.normal(k_q, (B, 4)),
+           "trans": jax.random.uniform(k_t, (B, 3)),
+           "scale": jax.random.uniform(k_s, (B,)),
+           "theta0": jax.random.uniform(k_j, (B, P)),
+           "djoint": jax.random.uniform(k_dj, (B, P)),
+           "axis": jax.random.normal(k_ax, (B, 3)),
+           "dtrans": jax.random.normal(k_dt, (B, 3)),
+           "noise": jax.random.normal(k_n, (T * B, N, 3)).reshape(
+               T, B, N, 3)}
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def jax_round_draws(key, pool_labels, coord_cfg, rot_cfg, track_cfg, *,
+                    traj_batch, traj_frames, minibatch, plain_steps=0,
+                    freeze_coord=False):
+    """The draws one JAX fine-tune round makes from `key`
+    (rollout.py:108-174), in the structure of the port's
+    `make_finetune_round(...).draw`: the round key split six ways (geometry,
+    trajectories, init noise, permutation, train, plain), the permutation
+    cut to n_mb * minibatch and cut into minibatches, one key a minibatch
+    split into the CoordNet's and the RotNet's, and each plain step's key
+    split four ways.  pool_labels: the pool's labels [G, N] (the pairwise
+    NOCS sample is over a minibatch's GT labels)."""
+    import jax
+    import torch
+    pool_labels = np.asarray(pool_labels)
+    G, N = pool_labels.shape
+    P = track_cfg.obj.num_parts
+    M = (traj_frames - 1) * traj_batch
+    n_mb = M // minibatch
+    k_geo, k_traj, k_init, k_perm, k_train, k_plain = jax.random.split(key, 6)
+    geo = np.array(jax.random.randint(k_geo, (traj_batch,), 0, G))
+    perm = np.array(jax.random.permutation(k_perm, M))
+    labels = np.tile(pool_labels[geo], (traj_frames - 1, 1))
+    init = None
+    if not track_cfg.track.init_frame_gt:
+        init = {k: torch.from_numpy(v) for k, v in jax_pose_noise(
+            k_init, (traj_batch, P), track_cfg.perturb.kind).items()}
+    train = []
+    mbs = perm[:n_mb * minibatch].reshape(n_mb, minibatch)
+    for i, k in enumerate(jax.random.split(k_train, n_mb)):
+        kc, kr = jax.random.split(k)
+        train.append({
+            "coord": (None if freeze_coord else
+                      jax_train_draws(coord_cfg, kc, labels[mbs[i]])),
+            "rot": jax_train_draws(rot_cfg, kr, labels[mbs[i]])})
+    plain = []
+    if plain_steps:
+        for k in jax.random.split(k_plain, plain_steps):
+            ks, kp, kc, kr = jax.random.split(k, 4)
+            pidx = np.array(jax.random.randint(ks, (minibatch,), 0, G))
+            plain.append({
+                "geo": torch.from_numpy(pidx),
+                "pose": jax_pose_batch_draws(kp, minibatch, N, P),
+                "coord": (None if freeze_coord else jax_train_draws(
+                    coord_cfg, kc, pool_labels[pidx])),
+                "rot": jax_train_draws(rot_cfg, kr, pool_labels[pidx])})
+    return {"geo": torch.from_numpy(geo),
+            "traj": jax_trajectory_draws(k_traj, traj_batch, N, P,
+                                         traj_frames),
+            "init": init, "perm": torch.from_numpy(perm), "train": train,
+            "plain": plain}
+
+
+# ---------------------------------------------------------------------------
+# state dicts in the reference's torch layout (numpy and torch only: the
+# card's tests and chip_smoke.py use them too)
+# ---------------------------------------------------------------------------
+
+def reference_backbone_sd(prefix, pn, in_dim, rng, out_dim=32):
+    """A reference PointNet2Msg state dict under `prefix`, laid out as
+    tests/test_convert.py's `_fake_backbone_sd` lays it out (1x1 Conv2d in
+    the set abstractions, Conv1d in the feature propagations, BN after
+    each), seeded from `rng`, weights scaled by 1/sqrt(fan-in)."""
+    import torch
+    sd = {}
+
+    def conv(key, cin, cout, spatial):
+        shape = (cout, cin) + (1,) * spatial
+        sd[f"{key}.weight"] = torch.tensor(
+            (rng.randn(*shape) / np.sqrt(cin)).astype(np.float32))
+        sd[f"{key}.bias"] = torch.tensor(rng.randn(cout).astype(np.float32))
+
+    def bn(key, c):
+        sd[f"{key}.weight"] = torch.tensor(np.ones(c, np.float32))
+        sd[f"{key}.bias"] = torch.tensor(np.zeros(c, np.float32))
+        sd[f"{key}.running_mean"] = torch.tensor(
+            rng.randn(c).astype(np.float32) * 0.1)
+        sd[f"{key}.running_var"] = torch.tensor(
+            np.abs(rng.randn(c).astype(np.float32)) + 1.0)
+
+    ch = in_dim + 3
+    sa_out = {}
+    for name, sa in (("sa1", pn.sa1), ("sa2", pn.sa2)):
+        outs = 0
+        for i, mlp in enumerate(sa.mlp_list):
+            last = ch
+            for j, c in enumerate(mlp):
+                conv(f"{prefix}.{name}.conv_blocks.{i}.{j}", last, c, 2)
+                bn(f"{prefix}.{name}.bn_blocks.{i}.{j}", c)
+                last = c
+            outs += last
+        sa_out[name] = outs
+        ch = outs + 3
+    last = ch
+    for j, c in enumerate(pn.sa3_mlp):
+        conv(f"{prefix}.sa3.mlp_convs.{j}", last, c, 2)
+        bn(f"{prefix}.sa3.mlp_bns.{j}", c)
+        last = c
+    fp_in = {"fp3": sa_out["sa2"] + pn.sa3_mlp[-1],
+             "fp2": sa_out["sa1"] + pn.fp3_mlp[-1],
+             "fp1": in_dim + 3 + pn.fp2_mlp[-1]}
+    for fp, mlp in (("fp3", pn.fp3_mlp), ("fp2", pn.fp2_mlp),
+                    ("fp1", pn.fp1_mlp)):
+        last = fp_in[fp]
+        for j, c in enumerate(mlp):
+            conv(f"{prefix}.{fp}.mlp_convs.{j}", last, c, 1)
+            bn(f"{prefix}.{fp}.mlp_bns.{j}", c)
+            last = c
+    conv(f"{prefix}.conv1", pn.fp1_mlp[-1], out_dim, 1)
+    bn(f"{prefix}.bn1", out_dim)
+    return sd
+
+
+def reference_coordnet_sd(cfg, prefix, seed):
+    """A reference CoordNet state dict under `prefix` (`net`, or
+    `npcs_net` in a composed tracking checkpoint): the backbone, the seg
+    head (one conv) and the NOCS head ([conv, BN, ReLU] per hidden layer,
+    then conv), seeded from `seed`."""
+    import torch
+    rng = np.random.RandomState(seed)
+    out = cfg.network.backbone_out_dim
+    P = cfg.obj.num_parts
+    sd = reference_backbone_sd(f"{prefix}.backbone", cfg.pointnet, 3, rng,
+                               out)
+
+    def conv(key, cin, cout):
+        sd[f"{key}.weight"] = torch.tensor(
+            (rng.randn(cout, cin, 1) / np.sqrt(cin)).astype(np.float32))
+        sd[f"{key}.bias"] = torch.tensor(rng.randn(cout).astype(np.float32))
+
+    conv(f"{prefix}.seg_head.0", out, P + cfg.obj.extra_dims)
+    last, idx = out, 0
+    for c in cfg.network.nocs_head_dims:
+        conv(f"{prefix}.nocs_head.{idx}", last, c)
+        bn = f"{prefix}.nocs_head.{idx + 1}"
+        sd[f"{bn}.weight"] = torch.tensor(
+            rng.uniform(0.5, 1.5, c).astype(np.float32))
+        sd[f"{bn}.bias"] = torch.tensor(
+            (rng.randn(c) * 0.1).astype(np.float32))
+        sd[f"{bn}.running_mean"] = torch.tensor(
+            (rng.randn(c) * 0.1).astype(np.float32))
+        sd[f"{bn}.running_var"] = torch.tensor(
+            rng.uniform(0.5, 1.5, c).astype(np.float32))
+        sd[f"{bn}.num_batches_tracked"] = torch.tensor(7)
+        last, idx = c, idx + 3
+    conv(f"{prefix}.nocs_head.{idx}", last, 3 * P)
+    return sd
+
+
+def reference_rotnet_sd(cfg, prefix, seed):
+    """A reference PartCanonNet state dict under `prefix`: the encoder and
+    one rotation head a part (MLPConv1d [conv, GroupNorm, ReLU] x 3, then
+    conv: Sequential indices 0, 1 / 3, 4 / 6, 7 / 9), seeded from `seed`.
+    The last layer's bias leans the rotation's rep to the identity (the x
+    and y axes; the y axis of a symmetric part), so its per-point
+    orthonormalisation is well conditioned."""
+    import torch
+    rng = np.random.RandomState(seed)
+    sd = reference_backbone_sd(f"{prefix}.regress_net.encoder",
+                               cfg.pointnet, 0, rng,
+                               cfg.network.backbone_out_dim)
+    dims = [cfg.network.backbone_out_dim, 512, 512, 256,
+            3 if cfg.obj.sym else 6]
+    for p in range(cfg.obj.num_parts):
+        base = f"{prefix}.regress_net.pose_pred.rtvec_head.{p}.model"
+        for li, ci in enumerate((0, 3, 6, 9)):
+            cin, cout = dims[li], dims[li + 1]
+            w = (rng.randn(cout, cin, 1) / np.sqrt(cin)).astype(np.float32)
+            b = (rng.randn(cout) * 0.1).astype(np.float32)
+            if li == 3:
+                b = np.float32(3.0) * np.eye(3, dtype=np.float32)[
+                    1 if cfg.obj.sym else slice(0, 2)].reshape(-1)
+            sd[f"{base}.{ci}.weight"] = torch.tensor(w)
+            sd[f"{base}.{ci}.bias"] = torch.tensor(b)
+            if li < 3:
+                sd[f"{base}.{ci + 1}.weight"] = torch.tensor(
+                    rng.uniform(0.5, 1.5, cout).astype(np.float32))
+                sd[f"{base}.{ci + 1}.bias"] = torch.tensor(
+                    (rng.randn(cout) * 0.1).astype(np.float32))
+    return sd
+
+
+def reference_track_state_dict(cfg, seed=0):
+    """A composed tracking checkpoint's model state dict (the CoordNet
+    under `npcs_net.`, the rotation net under `net.`, reference
+    trainer.py:159-170), seeded from `seed`."""
+    return {**reference_coordnet_sd(cfg, "npcs_net", seed),
+            **reference_rotnet_sd(cfg, "net", seed + 1)}
