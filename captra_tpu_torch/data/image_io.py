@@ -1,5 +1,5 @@
-"""PNG reading in numpy, zlib and the host core, for the NOCS reader's
-depth and mask images (no OpenCV: the readers need only these two reads).
+"""PNG reading and writing in numpy, zlib and the host core, for the NOCS
+reader's depth and mask images and the offline preprocessing (no OpenCV).
 
 `read_png(path, unchanged=True)` returns what `cv2.imread(path, -1)`
 returns and `read_png(path)` what `cv2.imread(path)` returns:
@@ -15,6 +15,10 @@ It reads non-interlaced images of bit depth 8 or 16 in colour types 0
 by the host core, `native.png_unfilter`).  Any other image (a palette, an
 interlaced one, other bit depths, a tRNS chunk, a bad CRC or a truncated
 file) raises `ValueError` naming the file.
+
+`write_png(path, img)` writes what `cv2.imwrite(path, img)` writes for a
+`.png`, pixel for pixel (the compression differs): uint8 or uint16 [H, W]
+as grey at that bit depth, [H, W, 3] in BGR order as RGB.
 """
 from __future__ import annotations
 
@@ -115,3 +119,35 @@ def read_png(path: str, unchanged: bool = False) -> np.ndarray:
     if samples.dtype == np.uint16:
         bgr = bgr >> 8
     return np.ascontiguousarray(bgr, dtype=np.uint8)
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """`cv2.imwrite(path, img)` of a `.png` (see the module docstring),
+    every row with the Up filter, zlib level 1 (OpenCV's default level).
+    Any other array raises `ValueError` before the file is opened."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.uint16) or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"write_png: needs uint8 or uint16 [H, W] or "
+                         f"[H, W, 3], got {img.dtype} {img.shape}")
+    H, W = img.shape[:2]
+    color = 0 if img.ndim == 2 else 2
+    samples = img if img.ndim == 2 else img[..., ::-1]     # BGR -> RGB
+    bits = 8 * img.dtype.itemsize
+    rows = np.ascontiguousarray(samples, f">u{img.dtype.itemsize}").view(
+        np.uint8).reshape(H, -1)
+    up = rows.copy()
+    up[1:] -= rows[:-1]                                    # mod 256
+    raw = np.concatenate([np.full((H, 1), 2, np.uint8), up], axis=1)
+    data = (SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, bits, color, 0,
+                                          0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+            + _chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)

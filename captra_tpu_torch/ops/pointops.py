@@ -112,6 +112,15 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
     return torch.where(sel < N, sel, first)
 
 
+def knn(k: int, query: torch.Tensor, data: torch.Tensor):
+    """k nearest neighbors of `query` [B, S, 3] among `data` [B, N, 3] ->
+    (L2 dists [B, S, k], int64 idx [B, S, k]), nearest first: `topk` of the
+    negated squared distances, then the root of their clamp at 0."""
+    sqr = square_distance(query, data)
+    neg, idx = torch.topk(-sqr, k, dim=-1)
+    return torch.sqrt(torch.clamp(-neg, min=0.0)), idx
+
+
 def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor):
     """3 nearest neighbors of xyz1 [B, N, 3] among xyz2 [B, M, 3] ->
     (squared dists [B, N, 3], int64 idx [B, N, 3]); three successive

@@ -63,6 +63,15 @@ def tree_root(tree: Sequence[int]) -> int:
     return roots[0]
 
 
+def tree_children(tree: Sequence[int]) -> list[list[int]]:
+    """The children of each part of a parent list, in part order."""
+    children = [[] for _ in tree]
+    for p, parent in enumerate(tree):
+        if parent != -1:
+            children[parent].append(p)
+    return children
+
+
 # ---------------------------------------------------------------------------
 # applying poses
 # ---------------------------------------------------------------------------
@@ -135,6 +144,16 @@ def compute_parts_delta_pose(init: Pose, final: Pose, canon: Pose) -> Pose:
     t = tf - tc - s_delta[..., None, None] * ((Rf @ R0T) @ (t0 - tc))
     t_delta = (RcT @ t) / sc[..., None, None]
     return Pose(rotation=R_delta, translation=t_delta, scale=s_delta)
+
+
+def convert_pred_rtvec_to_matrix(pred: torch.Tensor,
+                                 sym: bool) -> torch.Tensor:
+    """Decode a regressed rotation: a y-vector [..., 3] to a frame when
+    `sym`, else a 9-D matrix [..., 9] orthonormalised by Gram-Schmidt ->
+    [..., 3, 3]."""
+    if sym:
+        return rot.yvec_to_matrix(pred)
+    return rot.gram_schmidt_3x3(pred.reshape(pred.shape[:-1] + (3, 3)))
 
 
 # ---------------------------------------------------------------------------

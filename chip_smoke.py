@@ -104,7 +104,22 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 frame read with `read_cloud(perturb=True)` (the depth-sensor
                 augmentation, the blur without OpenCV): seconds and pixels
                 relabelled.
-  8. train   -- training at the configs' full width (SAPIEN laptop,
+  8. preproc -- the offline preprocessing path, then its tree tracked on
+                the card: a raw NOCS release written from the seed at
+                480x640 (a real_test scene of 30 frames with 16-bit depth,
+                a mirrored CAMERA `val` folder of 10 frames with 3-channel
+                composed depth; the bottle, the can and the mug, each
+                pixel's NOCS coord the exact inverse of its depth) through
+                `cli.preproc.main` a stage at a time at num_proc 1 (seconds
+                a stage and a frame), every recovered pose within 0.02 /
+                0.02 / 5 degrees of the fixture's, the instance lists
+                naming every frame, a gather at num_proc 4 into a second
+                root equal to the first bit for bit, the host core's
+                backprojection of a frame against the numpy path's (ms a
+                frame); then `cli.track.main --nocs_otf true` on the
+                produced tree's bottle and `cli.evaluate.main`, with the
+                data phase's gates (`track_from_disk`).
+  9. train   -- training at the configs' full width (SAPIEN laptop,
                 batch 12, 4096 points, `pointnet2_camera`; seeded nets, a
                 fixed `make_frame_batch` batch, draws from a seeded card
                 generator) in the runs of TRAIN_RUNS: the CoordNet (sa1 ->
@@ -127,7 +142,7 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 for one epoch on NOCS fixtures written from the seed; each
                 CLI's FPS launches as `route` predicts, and the kernels
                 held on the first CoordNet run's FPS inputs.
-  9. rollout -- on-policy rollout fine-tuning at the JAX script's
+ 10. rollout -- on-policy rollout fine-tuning at the JAX script's
                 defaults (NOCS bottle, 4096 points, bfloat16, GN,
                 traj_batch 16 x 20 frames, minibatch 12, a pool of 512
                 geometries; the seeded nets as pickle checkpoints): round 1
@@ -142,13 +157,16 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 ROLLOUT_ROUNDS rounds (the script's 100 cut), evaluated at
                 rounds 0 and ROLLOUT_ROUNDS: launches, finite logs,
                 EVIDENCE.json, the checkpoints loaded back.
- 10. summary -- JSON lines of the paths and of the kernels, then, as the
+ 11. summary -- JSON lines of the paths and of the kernels, then, as the
                 last line, {"ok": true, "device": {...}}.
 
---profile DIR adds a torch.profiler window over a few tracked frames to each
-run and over a fine-tune round (kernel time by name and family, the
-device's busy share, FPS's share of the step, host syncs) and writes the
-full tables into DIR.
+--profile DIR adds a torch.profiler window (`utils/profiling.trace`) over a
+few tracked frames to each run and over a fine-tune round (kernel time by
+name and family, the device's busy share, FPS's share of the step, host
+syncs; in the round, the device time of the forwards of each module family
+(GroupNorm, the SA and FP blocks, the heads), of the losses and
+of the optimizer step, under `annotate` spans) and writes the full tables
+and each window's Chrome trace into DIR.
 
 Without a CUDA device the script exits with code 2 and prints no result.
 """
@@ -899,15 +917,16 @@ def profile_window(run, steps: int, B: int, out_dir: str,
                    tag: str | None = None) -> dict:
     """Kernel time by name over `run` (`steps` tracked steps), and the
     device's busy share of the window's wall time; the full table goes to
-    `out_dir` as profile_<tag>.txt.  Returns ms per step: wall, busy, by
-    family, and the host syncs in the window (its own closing sync
-    included)."""
+    `out_dir` as profile_<tag>.txt, beside the window's Chrome trace
+    (`utils/profiling.trace`).  Returns ms per step: wall, busy, by
+    family, the device time under each `annotate` span (the kernels its
+    host ops launched, nested spans included), and the host syncs in the
+    window (its own closing sync included)."""
+    from captra_tpu_torch.utils.profiling import trace
     tag = tag or f"b{B}"
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace(out_dir) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -919,10 +938,15 @@ def profile_window(run, steps: int, B: int, out_dir: str,
 
     averages = prof.key_averages()
     # kernels, copies and memsets run on the card; the CPU ops that launched
-    # them repeat their time and are left out of the sum
-    on_card = sorted((e for e in averages
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=dev_us, reverse=True)
+    # them repeat their time and are left out of the sum, and so are the
+    # spans' ranges on the card's timeline
+    annotation = [getattr(e, "is_user_annotation", False) for e in averages]
+    on_card = sorted((e for e, a in zip(averages, annotation)
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not a), key=dev_us, reverse=True)
+    spans = {e.key: e.device_time_total / steps / 1e3
+             for e, a in zip(averages, annotation)
+             if a and e.device_type == torch.autograd.DeviceType.CPU}
     busy = sum(dev_us(e) for e in on_card)
     syncs = sum(e.count for e in averages
                 if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
@@ -936,15 +960,91 @@ def profile_window(run, steps: int, B: int, out_dir: str,
     log("  by family: " + ", ".join(
         f"{f} {t / steps / 1e3:.3f}" for f, t in
         sorted(families.items(), key=lambda kv: -kv[1])) + " (ms/step)")
+    if spans:
+        log("  by span (device ms/step, share of busy): " + ", ".join(
+            f"{k} {v:.3f} ({100 * v * steps * 1e3 / busy:.1f}%)"
+            for k, v in sorted(spans.items(), key=lambda kv: -kv[1])))
     for e in on_card[:10]:
         log(f"  {dev_us(e) / steps / 1e3:8.3f} ms/step  x{e.count // steps:<5}"
             f" {e.key[:90]}")
-    os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
         f.write(averages.table(sort_by="self_cuda_time_total", row_limit=-1))
     return {"wall_ms": wall_us / steps / 1e3, "busy_ms": busy / steps / 1e3,
             "busy_share": busy / wall_us, "syncs_in_window": syncs,
-            "families_ms": {f: t / steps / 1e3 for f, t in families.items()}}
+            "families_ms": {f: t / steps / 1e3 for f, t in families.items()},
+            "spans_ms": spans}
+
+
+# the rollout profile's spans: module families by class (their forwards),
+# the heads by attribute name, the losses the trainer calls, the optimizer
+SPAN_MODULES = (("GroupNorm", "group_norm"), ("SetAbstractionMsg", "sa"),
+                ("SetAbstractionAll", "sa"), ("FeaturePropagation", "fp"))
+SPAN_HEADS = ("seg_head", "nocs_head", "regressor")
+SPAN_LOSSES = ("miou_loss", "nocs_loss", "sym_nocs_loss", "part_dof_loss",
+               "rot_trace_loss", "rot_yaxis_loss", "point_pose_loss",
+               "weighted_total")
+
+
+@contextlib.contextmanager
+def module_spans(nets):
+    """`annotate` spans over the forwards of each module family of `nets`
+    (SPAN_MODULES, SPAN_HEADS; by forward pre- and post-hooks), over the
+    losses the trainer calls (outermost call only) and over the
+    optimizer's step (wrappers here: the package is not changed).  The
+    backward's kernels run outside every span."""
+    from captra_tpu_torch.models import losses
+    from captra_tpu_torch.training import trainer
+    from captra_tpu_torch.utils.profiling import annotate
+
+    handles = []
+
+    def hook(name):
+        open_spans = []
+
+        def pre(module, args):
+            span = annotate(name)
+            span.__enter__()
+            open_spans.append(span)
+
+        def post(module, args, out):
+            open_spans.pop().__exit__(None, None, None)
+        return pre, post
+
+    for net in nets:
+        for path, module in net.named_modules():
+            name = dict(SPAN_MODULES).get(type(module).__name__)
+            if name is None and path.split(".")[-1] in SPAN_HEADS:
+                name = "heads"
+            if name:
+                pre, post = hook(name)
+                handles += [module.register_forward_pre_hook(pre),
+                            module.register_forward_hook(post)]
+    depth = [0]
+
+    def spanned(fn, name):
+        def run(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
+            depth[0] += 1
+            try:
+                with annotate(name):
+                    return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        return run
+
+    patched = [(losses, n, getattr(losses, n)) for n in SPAN_LOSSES]
+    patched.append((trainer.Optimizer, "step", trainer.Optimizer.step))
+    for owner, n, fn in patched:
+        setattr(owner, n, spanned(fn, "optimizer" if n == "step"
+                                  else "losses"))
+    try:
+        yield
+    finally:
+        for owner, n, fn in patched:
+            setattr(owner, n, fn)
+        for h in handles:
+            h.remove()
 
 
 def phase_otf(device: str = "cuda", profile: str | None = None,
@@ -1734,29 +1834,154 @@ def check_sapien_perturb(root: str) -> dict:
                 max_shift_m=float(shift.max()))
 
 
-def phase_data(kernels: dict) -> dict:
-    """The track CLI on the card on datasets on disk (DATA_RUNS), written
-    at 480x640 in a temporary directory from SEED, from checkpoints of the
-    seeded nets: per run `cli.track.main` (counters zeroed just before, read
-    just after: FPS launches a tracked frame as `route` predicts), one
-    result pickle a trajectory with finite poses within POSE_TOL of
-    `track_trajectory` on the same nets, batches and draws,
+def track_from_disk(name: str, root: str, flags: list, exp: str,
+                    kernels: dict, n_frames: int, want_traj: int,
+                    where: str, path: str) -> tuple:
+    """`cli.track.main --save` on the dataset at `root` with `flags`, from
+    checkpoints of the seeded nets written under `exp` (counters zeroed
+    just before, read just after: FPS launches a tracked frame as `route`
+    predicts), `want_traj` trajectories of `n_frames` frames in one batch,
+    one result pickle a trajectory with finite poses within POSE_TOL of
+    `track_trajectory` on the same nets, batch and draws,
     `cli.evaluate.main` with IoU (err.csv with a row a tracked frame and
     every metric); the twin's FPS inputs recorded and each kernel held
-    against the plain FPS on them (into `kernels`); reader seconds a frame
-    cold (the CLI's own reads: SAPIEN writes its cache) and warm (read
-    again).  Then the host core's FPS of a reader's frame, and
-    `otf_frame_from_depth` on one frame of the NOCS scene against the same
-    call with the plain FPS."""
+    against the plain FPS on them (into `kernels`, under `where`), so a
+    run with the plain FPS is this run; reader seconds a frame cold (the
+    CLI's own reads) and warm (read again).  Returns (the run's numbers,
+    its config)."""
     import pickle
     from captra_tpu_torch.cli import track
-    from captra_tpu_torch.data import native, preprocess
     from captra_tpu_torch.data.factory import make_dataset
     from captra_tpu_torch.ops import fps
-    from captra_tpu_torch.pose.part_dof import Pose
     from captra_tpu_torch.tracking.tracker import (
         init_pose_from_gt, make_track_step, track_trajectory,
     )
+
+    dev = torch.device("cuda")
+    H, W = DATA_IMAGE_HW
+    common = ["--basepath", root, "--experiment_dir",
+              os.path.join(exp, "rot"), "--coord_exp/dir",
+              os.path.join(exp, "coord"),
+              *[f.replace("{root}", root) for f in flags]]
+    argv = ["--save", *common]
+    args, cfg = track.parse(argv)
+    nets = write_checkpoints(cfg, dev, os.path.join(exp, "coord"),
+                             os.path.join(exp, "rot"))
+    otf = cfg.track.nocs_otf
+
+    tracked, reads = [], []
+    sequences, dataset_sequences = (track.track_sequences,
+                                    track.dataset_sequences)
+
+    def record(cfg, step, seqs, **kwargs):
+        tracked.extend(seqs)
+        return sequences(cfg, step, tracked, **kwargs)
+
+    track.track_sequences = record
+    track.dataset_sequences = _timed_reads(dataset_sequences, reads)
+    try:
+        sync(dev)
+        fps.reset_launch_counts()
+        text, _, main_s = _printed(track.main, argv, device=dev)
+        launches = dict(fps.launch_counts)
+    finally:
+        track.track_sequences = sequences
+        track.dataset_sequences = dataset_sequences
+    for line in text.strip().splitlines():
+        log(f"  | {line}")
+    batches = _BATCH_LINE.findall(text)
+    n_traj = sum(int(b[2]) for b in batches)
+    B = int(batches[0][2])
+    if (len(batches) != 1 or n_traj != want_traj
+            or int(batches[0][1]) != n_frames - 1):
+        raise AssertionError(f"{path} {name}: batches {batches}")
+    steps = n_frames - 1 + track.WARMUP_FRAMES - 1
+    per_step = predicted_launches(cfg, B, (H, W) if otf else None)
+    want = {k: per_step.get(k, 0) * steps for k in launches}
+    if launches != want:
+        raise AssertionError(f"{path} {name}: FPS launches {launches}, "
+                             f"expected {want}")
+    cold_s = sum(reads) / (n_traj * n_frames)
+    t0 = time.perf_counter()
+    ds = make_dataset(cfg, args.mode_name)
+    for i in range(len(ds)):
+        ds[i]
+    warm_s = (time.perf_counter() - t0) / len(ds)
+
+    data_dir = os.path.join(exp, "rot", "results", "data")
+    names, batch = tracked[0]
+    names = (names,) if isinstance(names, str) else names
+    files = [n.replace("/", "_") + ".pkl" for n in names]
+    if sorted(os.listdir(data_dir)) != sorted(files):
+        raise AssertionError(f"{path} {name}: result files "
+                             f"{os.listdir(data_dir)}")
+    saved = []
+    for f in files:
+        with open(os.path.join(data_dir, f), "rb") as fh:
+            saved.append(pickle.load(fh))
+    # the twin: the same nets (not through a checkpoint), the batch the CLI
+    # tracked, the CLI's draws (its generator of seed 0: the init noise,
+    # then the crop's shifts), `track_trajectory`
+    gen = torch.Generator().manual_seed(0)
+    init = init_pose_from_gt(
+        batch["pose"][0], cfg, generator=gen,
+        crop_translation=(batch["crop_translation"][0]
+                          if "crop_translation" in batch else None),
+        crop_scale=(batch["crop_scale"][0]
+                    if "crop_scale" in batch else None))
+    if otf:
+        T_, B_, H_, W_ = batch["depth"].shape
+        frames_in = {"depth": batch["depth"], "mask": batch["mask"],
+                     "shift": torch.randint(0, H_ * W_, (T_, B_),
+                                            generator=gen)}
+        if cfg.track.nocs2d_label:
+            for k in ("det_masks", "det_boxes", "det_valid"):
+                frames_in[k] = batch[k]
+    else:
+        frames_in = {"points": batch["points"]}
+    step = make_track_step(cfg, *nets, device=dev)
+    calls = {}
+    with recording_fps(calls):
+        _, aux = track_trajectory(
+            step, init, {k: v.to(dev) for k, v in frames_in.items()},
+            device=dev)
+    diff = check_saved_poses(f"{path} {name}", saved, aux)
+    eval_s = check_evaluate(f"{path} {name} evaluate (iou)", common, dev,
+                            os.path.join(exp, "rot"),
+                            n_traj * (n_frames - 1), cfg.obj.num_parts, True)
+
+    by_shape = {}
+    for (n, npoint), clouds in calls.items():
+        for xyz in clouds:
+            by_shape.setdefault((xyz.shape[0], n, npoint), []).append(xyz)
+    for (b, n, npoint), clouds in sorted(by_shape.items()):
+        check_video(fps, kernels, (fps.route(b, n),), clouds, npoint, name,
+                    n_frames - 1, where, path=path)
+    run = dict(
+        B=B, trajectories=n_traj, frames=n_frames, launches=launches,
+        ms_per_step=float(batches[0][3]) * 1e3 / (n_frames - 1),
+        frames_per_s=float(batches[0][4]), track_main_s=main_s,
+        reader_cold_s_per_frame=cold_s, reader_warm_s_per_frame=warm_s,
+        evaluate_s=eval_s, twin_max_pose_diff=diff)
+    log(f"{path} {name}: B={B}, {n_traj} trajectories x {n_frames} "
+        f"frames; reader {cold_s:.4f} s a frame cold (the CLI's own "
+        f"reads), {warm_s:.4f} s warm (read again); CLI tracking "
+        f"{run['ms_per_step']:.2f} ms a step, {run['frames_per_s']} tracked "
+        f"frames/s as it prints them; main {main_s:.2f} s; FPS launches a "
+        f"tracked frame {_frame_launches(launches, steps)}")
+    return run, cfg
+
+
+def phase_data(kernels: dict) -> dict:
+    """The track CLI on the card on datasets on disk (DATA_RUNS), written
+    at 480x640 in a temporary directory from SEED, each run through
+    `track_from_disk`.  Then the host core's FPS of a reader's frame, and
+    `otf_frame_from_depth` on one frame of the NOCS scene against the same
+    call with the plain FPS."""
+    from captra_tpu_torch.cli import track
+    from captra_tpu_torch.data import native, preprocess
+    from captra_tpu_torch.data.factory import make_dataset
+    from captra_tpu_torch.pose.part_dof import Pose
 
     dev = torch.device("cuda")
     H, W = DATA_IMAGE_HW
@@ -1774,123 +1999,12 @@ def phase_data(kernels: dict) -> dict:
             f"{len(DATA_SAPIEN_INSTANCES)} tracks x {frames['sapien']} "
             f"frames, NOCS bottle 1 scene x {frames['nocs']} frames, {H}x{W}")
         for name, flags in DATA_RUNS:
-            exp = os.path.join(tmp, name)
-            common = ["--basepath", root, "--experiment_dir",
-                      os.path.join(exp, "rot"), "--coord_exp/dir",
-                      os.path.join(exp, "coord"),
-                      *[f.replace("{root}", root) for f in flags]]
-            argv = ["--save", *common]
-            args, cfg = track.parse(argv)
-            nets = write_checkpoints(cfg, dev, os.path.join(exp, "coord"),
-                                     os.path.join(exp, "rot"))
-            otf = cfg.track.nocs_otf
-            n_frames = frames["nocs" if cfg.obj.nocs_data else "sapien"]
-
-            tracked, reads = [], []
-            sequences, dataset_sequences = (track.track_sequences,
-                                            track.dataset_sequences)
-
-            def record(cfg, step, seqs, **kwargs):
-                tracked.extend(seqs)
-                return sequences(cfg, step, tracked, **kwargs)
-
-            track.track_sequences = record
-            track.dataset_sequences = _timed_reads(dataset_sequences, reads)
-            try:
-                sync(dev)
-                fps.reset_launch_counts()
-                text, _, main_s = _printed(track.main, argv, device=dev)
-                launches = dict(fps.launch_counts)
-            finally:
-                track.track_sequences = sequences
-                track.dataset_sequences = dataset_sequences
-            for line in text.strip().splitlines():
-                log(f"  | {line}")
-            batches = _BATCH_LINE.findall(text)
-            n_traj = sum(int(b[2]) for b in batches)
-            B = int(batches[0][2])
-            want_traj = 1 if cfg.obj.nocs_data else len(DATA_SAPIEN_INSTANCES)
-            if (len(batches) != 1 or n_traj != want_traj
-                    or int(batches[0][1]) != n_frames - 1):
-                raise AssertionError(f"data {name}: batches {batches}")
-            steps = n_frames - 1 + track.WARMUP_FRAMES - 1
-            per_step = predicted_launches(cfg, B, (H, W) if otf else None)
-            want = {k: per_step.get(k, 0) * steps for k in launches}
-            if launches != want:
-                raise AssertionError(f"data {name}: FPS launches {launches}, "
-                                     f"expected {want}")
-            cold_s = sum(reads) / (n_traj * n_frames)
-            t0 = time.perf_counter()
-            ds = make_dataset(cfg, args.mode_name)
-            for i in range(len(ds)):
-                ds[i]
-            warm_s = (time.perf_counter() - t0) / len(ds)
-
-            data_dir = os.path.join(exp, "rot", "results", "data")
-            names, batch = tracked[0]
-            names = (names,) if isinstance(names, str) else names
-            files = [n.replace("/", "_") + ".pkl" for n in names]
-            if sorted(os.listdir(data_dir)) != sorted(files):
-                raise AssertionError(f"data {name}: result files "
-                                     f"{os.listdir(data_dir)}")
-            saved = []
-            for f in files:
-                with open(os.path.join(data_dir, f), "rb") as fh:
-                    saved.append(pickle.load(fh))
-            # the twin: the same nets (not through a checkpoint), the batch
-            # the CLI tracked, the CLI's draws (its generator of seed 0: the
-            # init noise, then the crop's shifts), `track_trajectory`
-            gen = torch.Generator().manual_seed(0)
-            init = init_pose_from_gt(
-                batch["pose"][0], cfg, generator=gen,
-                crop_translation=(batch["crop_translation"][0]
-                                  if "crop_translation" in batch else None),
-                crop_scale=(batch["crop_scale"][0]
-                            if "crop_scale" in batch else None))
-            if otf:
-                T_, B_, H_, W_ = batch["depth"].shape
-                frames_in = {"depth": batch["depth"], "mask": batch["mask"],
-                             "shift": torch.randint(0, H_ * W_, (T_, B_),
-                                                    generator=gen)}
-                if cfg.track.nocs2d_label:
-                    for k in ("det_masks", "det_boxes", "det_valid"):
-                        frames_in[k] = batch[k]
-            else:
-                frames_in = {"points": batch["points"]}
-            step = make_track_step(cfg, *nets, device=dev)
-            calls = {}
-            with recording_fps(calls):
-                _, aux = track_trajectory(
-                    step, init, {k: v.to(dev) for k, v in frames_in.items()},
-                    device=dev)
-            diff = check_saved_poses(f"data {name}", saved, aux)
-            eval_s = check_evaluate(f"data {name} evaluate (iou)", common,
-                                    dev, os.path.join(exp, "rot"),
-                                    n_traj * (n_frames - 1),
-                                    cfg.obj.num_parts, True)
-
-            by_shape = {}
-            for (n, npoint), clouds in calls.items():
-                for xyz in clouds:
-                    by_shape.setdefault((xyz.shape[0], n, npoint),
-                                        []).append(xyz)
-            for (b, n, npoint), clouds in sorted(by_shape.items()):
-                check_video(fps, kernels, (fps.route(b, n),), clouds, npoint,
-                            name, n_frames - 1, DATA_VIDEO, path="data")
-            out["runs"][name] = run = dict(
-                B=B, trajectories=n_traj, frames=n_frames, launches=launches,
-                ms_per_step=float(batches[0][3]) * 1e3 / (n_frames - 1),
-                frames_per_s=float(batches[0][4]), track_main_s=main_s,
-                reader_cold_s_per_frame=cold_s,
-                reader_warm_s_per_frame=warm_s, evaluate_s=eval_s,
-                twin_max_pose_diff=diff)
-            log(f"data {name}: B={B}, {n_traj} trajectories x {n_frames} "
-                f"frames; reader {cold_s:.4f} s a frame cold (the CLI's own "
-                f"reads), {warm_s:.4f} s warm (read again); CLI tracking "
-                f"{run['ms_per_step']:.2f} ms a step, "
-                f"{run['frames_per_s']} tracked frames/s as it prints "
-                f"them; main {main_s:.2f} s; FPS launches a tracked frame "
-                f"{_frame_launches(launches, steps)}")
+            nocs = "--obj_config" in flags
+            out["runs"][name], cfg = track_from_disk(
+                name, root, flags, os.path.join(tmp, name), kernels,
+                frames["nocs" if nocs else "sapien"],
+                1 if nocs else len(DATA_SAPIEN_INSTANCES), DATA_VIDEO,
+                "data")
 
         # the host core's FPS of one reader frame: 5 x 4096 points -> 4096
         cloud = np.random.RandomState(SEED).randn(
@@ -1930,6 +2044,187 @@ def phase_data(kernels: dict) -> dict:
         log(f"data otf_frame_from_depth: {H}x{W} frame "
             f"-> {cfg.num_points} points ({int((got['labels'] == 0).sum())} "
             "on the object), equal to the plain FPS's")
+    return out
+
+
+# the preproc phase: a raw NOCS release written from the seed at 480x640
+# (`tests/torch_port_helpers.py::write_raw_nocs`: the bottle, the can and
+# the mug, blocks of PREPROC_BLOCK pixels at about 1 m, a pixel a frame),
+# a real_test scene and a mirrored CAMERA `val` folder, through
+# `cli.preproc.main`, then the produced tree tracked on the card
+PREPROC_FRAMES = {"real_test": ("scene_1", 30), "val": ("00000", 10)}
+PREPROC_BLOCK = (90, 60)
+PREPROC_CATEGORIES = "1,4,6"
+PREPROC_STAGES = ("poses", "lists", "corners", "gather")
+PREPROC_BARS = (0.02, 0.02, 5.0)   # scale, translation, degrees: the JAX
+#                                    test's (test_preproc_pipeline.py:116)
+PREPROC_RUNS = (("nocs_bottle_otf", DATA_NOCS_OBJ),)
+PREPROC_VIDEO = "the preproc phase's tracked tree, ms a frame"
+
+
+def _render_tree(root: str) -> dict:
+    """{path under render/: its all_dict (path made relative to `root`),
+    its text, or its link target}."""
+    tree = {}
+    base = os.path.join(root, "render")
+    for d, dirs, files in os.walk(base):
+        for n in dirs + files:
+            full = os.path.join(d, n)
+            rel = os.path.relpath(full, base)
+            if os.path.islink(full):
+                tree[rel] = ("link", os.readlink(full))
+            elif n.endswith(".npz"):
+                item = np.load(full, allow_pickle=True)["all_dict"].item()
+                item["path"] = os.path.relpath(item["path"], root)
+                tree[rel] = item
+            elif n.endswith(".txt"):
+                with open(full) as fh:
+                    tree[rel] = fh.read().replace(root, "<root>")
+    return tree
+
+
+def _same_item(a, b) -> bool:
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(_same_item(a[k], b[k]) for k in a))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and np.array_equal(a, b))
+    return type(a) is type(b) and a == b
+
+
+def preproc_release(tmp: str) -> dict:
+    """The host half of the preproc phase (it needs no card): the raw
+    release written under `tmp`, `cli.preproc.main` a stage at a time at
+    `num_proc` 1 (seconds a stage and a frame), the gates (every recovered
+    pose within PREPROC_BARS of the fixture's own, the instance lists
+    naming every frame, a gather at `num_proc` 4 into a second root from
+    the same pose pickles equal to the first bit for bit), and the host
+    core's backprojection of a frame against the numpy path's.  Returns
+    the numbers and the root."""
+    import pickle
+    from captra_tpu_torch.cli import preproc
+    from captra_tpu_torch.data import native, preproc_nocs
+    helpers = port_helpers()
+    root = os.path.join(tmp, "nocs")
+    t0 = time.perf_counter()
+    gt = {}
+    for k, (dt, (track, n)) in enumerate(PREPROC_FRAMES.items()):
+        gt[dt] = helpers.write_raw_nocs(root, dt, [track], n,
+                                        block=PREPROC_BLOCK, seed=SEED + k)
+    H, W = DATA_IMAGE_HW
+    frames = sum(n for _, n in PREPROC_FRAMES.values())
+    out = {"frames": frames, "write_s": time.perf_counter() - t0,
+           "stage_s": {}}
+    argv = ["--data_path", root, "--data_type", ",".join(PREPROC_FRAMES),
+            "--categories", PREPROC_CATEGORIES]
+    for stage in PREPROC_STAGES:
+        text, _, out["stage_s"][stage] = _printed(
+            preproc.main, [*argv, "--stages", stage, "--num_proc", "1"])
+        for line in text.strip().splitlines():
+            log(f"  | {line}")
+    per_frame = {k: v / frames for k, v in out["stage_s"].items()}
+    out["stage_s_per_frame"] = per_frame
+
+    worst = np.zeros(3)
+    for dt, frames_gt in gt.items():
+        for key, poses in frames_gt.items():
+            with open(os.path.join(root, "nocs_full", dt, f"{key}_pose.pkl"),
+                      "rb") as fh:
+                got = pickle.load(fh)
+            if sorted(got) != sorted(poses):
+                raise AssertionError(f"preproc {dt} {key}: poses of "
+                                     f"instances {sorted(got)}")
+            for n, pose in poses.items():
+                err = np.array(helpers.pose_errors(got[n], pose))
+                worst = np.maximum(worst, err)
+                if (err >= PREPROC_BARS).any():
+                    raise AssertionError(
+                        f"preproc {dt} {key} instance {n}: scale, "
+                        f"translation, rotation errors {err.tolist()} past "
+                        f"{PREPROC_BARS}")
+    out["worst_pose_error"] = dict(zip(("scale", "translation",
+                                        "rotation_deg"), worst.tolist()))
+    for dt, (track, n) in PREPROC_FRAMES.items():
+        for _, cls, _, name in helpers.NOCS_RAW_INSTANCES:
+            with open(os.path.join(root, "instance_list", dt, str(cls),
+                                   f"{name}.txt")) as fh:
+                listed = fh.read().split()
+            if listed != [f"{track}/{f:04d}" for f in range(n)]:
+                raise AssertionError(f"preproc {dt} {name}: the instance "
+                                     f"list names {listed}")
+
+    # gather again at num_proc 4 into a second root that shares the raw
+    # frames, pose pickles, lists and corners
+    root4 = os.path.join(tmp, "nocs4")
+    os.makedirs(root4)
+    for sub in ("nocs_full", "instance_list", "model_corners", "obj_models"):
+        os.symlink(os.path.join(root, sub), os.path.join(root4, sub))
+    text, _, out["gather4_s"] = _printed(
+        preproc.main, ["--data_path", root4, *argv[2:], "--stages",
+                       "gather", "--num_proc", "4"])
+    tree, tree4 = _render_tree(root), _render_tree(root4)
+    npz = sum(k.endswith(".npz") for k in tree)
+    crops = sum(n for _, n in PREPROC_FRAMES.values()) * len(
+        helpers.NOCS_RAW_INSTANCES)
+    if (sorted(tree) != sorted(tree4) or npz != crops
+            or not all(_same_item(tree[k], tree4[k]) for k in tree)):
+        raise AssertionError(f"preproc: the gather at num_proc 4 differs "
+                             f"from num_proc 1 ({npz} of {crops} crops)")
+    points = [v["points"].shape[0] for k, v in tree.items()
+              if k.endswith(".npz")]
+
+    # the host core's backprojection of a frame against the numpy path
+    depth = preproc_nocs.read_depth(os.path.join(
+        root, "nocs_full", "real_test", "scene_1", "0000_depth.png"))
+    K = preproc_nocs.REAL_INTRINSICS
+    ones = np.ones_like(depth, np.uint8)
+    core_ms, numpy_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        got, _ = preproc_nocs.backproject(depth, K, ones)
+        core_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        want, _ = preproc_nocs.backproject(depth, K)
+        numpy_ms.append((time.perf_counter() - t0) * 1e3)
+    diff = float(np.abs(got - want).max())
+    if got.shape != want.shape or diff > 1e-6:
+        raise AssertionError(f"preproc: the core's backprojection is "
+                             f"{diff} from the numpy path's")
+    out.update(backproject_core_ms=float(np.median(core_ms)),
+               backproject_numpy_ms=float(np.median(numpy_ms)),
+               backproject_max_diff=diff, crops=npz,
+               crop_points_median=float(np.median(points)))
+    log(f"preproc: raw release of {frames} frames ({H}x{W}; real_test "
+        f"{PREPROC_FRAMES['real_test'][1]}, CAMERA val "
+        f"{PREPROC_FRAMES['val'][1]}; 3 instances a frame) written in "
+        f"{out['write_s']:.2f} s; stages at num_proc 1 "
+        + ", ".join(f"{k} {v:.2f} s ({per_frame[k]:.4f} s a frame)"
+                    for k, v in out["stage_s"].items())
+        + f"; gather at num_proc 4 {out['gather4_s']:.2f} s, its {npz} "
+        f"crops equal to num_proc 1's (median {np.median(points):.0f} "
+        f"points); worst pose error {out['worst_pose_error']} (bars "
+        f"{PREPROC_BARS}); host core backprojection "
+        f"{out['backproject_core_ms']:.2f} ms a frame, numpy path "
+        f"{out['backproject_numpy_ms']:.2f} ms (max |diff| {diff:.2e} m); "
+        f"host: {os.cpu_count()} cores")
+    return out, root
+
+
+def phase_preproc(kernels: dict) -> dict:
+    """The offline preprocessing path on the card's machine, then the
+    produced tree tracked on the card: `preproc_release`, then each run of
+    PREPROC_RUNS through `track_from_disk` on the tree (its FPS launches
+    as predicted, poses within POSE_TOL of the twin, the kernels equal to
+    the plain FPS on the run's inputs, into `kernels`)."""
+    with tempfile.TemporaryDirectory(prefix="captra_preproc_") as tmp:
+        out, root = preproc_release(tmp)
+        track, frames = PREPROC_FRAMES["real_test"]
+        out["runs"] = {}
+        for name, flags in PREPROC_RUNS:
+            out["runs"][name], _ = track_from_disk(
+                name, root, flags, os.path.join(tmp, name), kernels, frames,
+                1, PREPROC_VIDEO, "preproc")
     return out
 
 
@@ -2457,9 +2752,12 @@ def phase_rollout(kernels: dict, profile: str | None = None) -> dict:
         rollout_ms = [a.elapsed_time(b) for a, b in spans]
         for msg in sorted(set(syncs)):
             log(f"rollout: host sync in a round: {msg}")
-        prof = (profile_window(lambda: one_round(3), 1, args.traj_batch,
-                               profile, tag="rollout_round")
-                if profile else None)
+        prof = None
+        if profile:
+            with module_spans([states[n].module for n in nets]):
+                prof = profile_window(lambda: one_round(3), 1,
+                                      args.traj_batch, profile,
+                                      tag="rollout_round")
         step_ms = (round_ms - rollout_ms[0]) / (2 * steps)
         log(f"rollout: a round {round_ms / 1e3:.3f} s: the rollout "
             f"({args.frames - 1} tracked steps of {args.traj_batch}; its "
@@ -2568,6 +2866,8 @@ def main() -> int:
     lap("cli")
     data = phase_data(kernels=kernels)
     lap("data")
+    pre = phase_preproc(kernels=kernels)
+    lap("preproc")
     train = phase_train(kernels=kernels)
     lap("train")
     roll = phase_rollout(kernels=kernels, profile=args.profile)
@@ -2588,6 +2888,8 @@ def main() -> int:
                       for r, v in cli.items()},
                    **{f"data_{r}": v["launches"][name]
                       for r, v in data["runs"].items()},
+                   **{f"preproc_{r}": v["launches"][name]
+                      for r, v in pre["runs"].items()},
                    **{f"train_{r}": v["launches"].get(name, 0)
                       for r, v in train["runs"].items()},
                    **{f"train_cli_{r}": v["launches"].get(name, 0)
@@ -2611,6 +2913,7 @@ def main() -> int:
     log(json.dumps({"init_search": init}))
     log(json.dumps({"cli": cli}))
     log(json.dumps({"data": data}))
+    log(json.dumps({"preproc": pre}))
     log(json.dumps({"train": train}))
     log(json.dumps({"rollout": roll}))
     log(json.dumps({"seconds": seconds}))

@@ -7,6 +7,8 @@ only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -o addopts="" -q
 """
+import os
+
 import fps_edge_clouds
 import numpy as np
 import pytest
@@ -580,3 +582,66 @@ def test_reference_checkpoint_nets_on_the_card(card, tmp_path):
         got = getattr(poses["cuda"], f).cpu()
         assert torch.isfinite(got).all(), f
         assert float((got - getattr(poses["cpu"], f)).abs().max()) <= 1e-4, f
+
+
+def _track_preprocessed_tree(root, device, exp):
+    """Tiny seeded nets (made on the CPU, moved to `device`) tracking the
+    bottle of the preprocessed tree at `root` on the OTF crop at B=1, with
+    the track CLI's loop; returns the saved result."""
+    import contextlib
+    import dataclasses
+    import io
+    import pickle
+
+    from captra_tpu_torch.cli import track
+    from captra_tpu_torch.config import schema
+    from captra_tpu_torch.models.coordnet import CoordNet
+    from captra_tpu_torch.models.rotnet import RotNet
+    from captra_tpu_torch.tracking.tracker import make_track_step
+    from torch_port_helpers import tiny_config
+
+    cfg = tiny_config(schema, num_points=128)
+    cfg = cfg.replace(
+        obj=dataclasses.replace(cfg.obj, nocs_data=True, basepath=root),
+        track=dataclasses.replace(cfg.track, nocs_otf=True), batch_size=1,
+        experiment_dir=exp)
+    gen = torch.Generator().manual_seed(0)
+    nets = [CoordNet(cfg, device="cpu", generator=gen).to(device),
+            RotNet(cfg, device="cpu", generator=gen).to(device)]
+    step = make_track_step(cfg, *nets, device=device)
+    with contextlib.redirect_stdout(io.StringIO()):
+        track.track_sequences(cfg, step, track.dataset_sequences(cfg),
+                              save=True, device=device)
+    (name,) = os.listdir(os.path.join(exp, "results", "data"))
+    with open(os.path.join(exp, "results", "data", name), "rb") as f:
+        return pickle.load(f)
+
+
+def test_preprocessed_tree_tracks_on_the_card_as_the_plain_fps(card,
+                                                                tmp_path):
+    """A raw NOCS release (3 real_test frames of three instances, from
+    `torch_port_helpers.write_raw_nocs`) through the port's preprocessing,
+    then its bottle tracked on the OTF crop at B=1 on the card: with the
+    kernels (each launched) and with the plain FPS on the card, the saved
+    poses finite and within 1e-4."""
+    from captra_tpu_torch.data.preproc_pipeline import run_pipeline
+    from captra_tpu_torch.ops import pointops
+    from torch_port_helpers import write_raw_nocs
+
+    root = str(tmp_path / "nocs")
+    write_raw_nocs(root, "real_test", ["scene_1"], 3)
+    run_pipeline(root, data_types=("real_test",), categories=[1],
+                 log=lambda *_: None)
+    fps.reset_launch_counts()
+    got = _track_preprocessed_tree(root, card, str(tmp_path / "kernels"))
+    assert sum(fps.launch_counts.values()) > 0
+    routed = pointops.farthest_point_sample_indices
+    pointops.farthest_point_sample_indices = fps.fps_plain
+    try:
+        want = _track_preprocessed_tree(root, card, str(tmp_path / "plain"))
+    finally:
+        pointops.farthest_point_sample_indices = routed
+    for k, v in want["pred"]["poses"].items():
+        assert np.isfinite(got["pred"]["poses"][k]).all(), k
+        np.testing.assert_allclose(got["pred"]["poses"][k], v, atol=1e-4,
+                                   err_msg=k)

@@ -4,8 +4,10 @@ package's (`captra_tpu/data/native.py`, `numpy_ops.py`).
 
 Tolerances: FPS indices equal to the JAX core's and to the plain numpy
 sweep, on clouds that include wrap-filled duplicates and exact ties; PNG
-unfiltering the exact inverse of the specification's filters; the numpy
-ops' outputs and their random draws equal on the same seeds.  A failed
+unfiltering the exact inverse of the specification's filters; the
+backprojection, squared distances and ball indices equal to the JAX
+core's bit for bit; the numpy ops' outputs and their random draws equal
+on the same seeds.  A failed
 build or load raises."""
 import os
 
@@ -151,3 +153,54 @@ def test_random_vectors_equal_jax(kind):
                                      np.random.RandomState(1)))
     with pytest.raises(ValueError, match="unsupported"):
         numpy_ops.random_vector(0.1, (2,), "cauchy", np.random.RandomState())
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("scale", [0.001, 0.00025])
+def test_backproject_equals_jax_core(masked, scale):
+    """A 480x640 frame with holes, with and without a mask, through both
+    cores (float64 rays from the float64 `inv(K)`): points and validity
+    bit for bit."""
+    rng = np.random.RandomState(11)
+    depth = rng.randint(0, 5000, (480, 640)).astype(np.uint16)
+    depth[rng.rand(480, 640) < 0.3] = 0
+    mask = (rng.rand(480, 640) < 0.6) if masked else None
+    K = np.array([[591.0125, 0, 322.525], [0, 590.16775, 244.11084],
+                  [0, 0, 1]])
+    pts, valid = native.backproject(depth, K, mask, scale)
+    want_pts, want_valid = jnative.backproject(depth, K, mask, scale)
+    assert pts.dtype == np.float32 and valid.dtype == bool
+    np.testing.assert_array_equal(pts, want_pts)
+    np.testing.assert_array_equal(valid, want_valid)
+    assert (pts[~valid] == 0).all() and valid.sum() > 0
+    with pytest.raises(ValueError, match="mask"):
+        native.backproject(depth, K, np.ones((4, 4), bool))
+
+
+def _jax_core(name, *args):
+    return getattr(jnative.get_lib(), name)(*args)
+
+
+@pytest.mark.parametrize("r2", [0.0, 0.5, 2.0, 100.0])
+def test_dist_to_center_and_ball_indices_equal_jax_core(r2):
+    """The squared distances bit for bit; the ball's indices in order (a
+    point exactly at the radius included), counted as the JAX core
+    counts."""
+    import ctypes
+    rng = np.random.RandomState(12)
+    pts = rng.randn(3000, 3).astype(np.float32)
+    center = np.float32([0.1, -0.2, 0.3])
+    got = native.dist_to_center(pts, center)
+    want = np.empty(len(pts), np.float32)
+    _jax_core("dist_to_center", jnative._f32p(pts), len(pts),
+              jnative._f32p(center), jnative._f32p(want))
+    np.testing.assert_array_equal(got, want)
+    got[5] = np.float32(r2)                       # on the boundary
+    idx = native.ball_indices(got, r2)
+    want_idx = np.full(len(got), -1, np.int64)
+    cnt = _jax_core("ball_indices", jnative._f32p(got), len(got), r2,
+                    want_idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                    len(got))
+    np.testing.assert_array_equal(idx, want_idx[:cnt])
+    np.testing.assert_array_equal(idx, np.where(got <= np.float32(r2))[0])
+    assert 5 in idx

@@ -383,3 +383,130 @@ def reference_track_state_dict(cfg, seed=0):
     trainer.py:159-170), seeded from `seed`."""
     return {**reference_coordnet_sd(cfg, "npcs_net", seed),
             **reference_rotnet_sd(cfg, "net", seed + 1)}
+
+
+# ---------------------------------------------------------------------------
+# a raw NOCS release, built pixel first (the JAX package's
+# tests/test_preproc_pipeline.py::_write_frame, generalised)
+# ---------------------------------------------------------------------------
+
+# (instance number, class id, synset, name) of the raw release's objects
+NOCS_RAW_INSTANCES = ((1, 1, "02876657", "bottle_red_stanford_norm"),
+                      (2, 4, "02946921", "can_arizona_tea_norm"),
+                      (3, 6, "03797390", "mug_brown_starbucks_norm"))
+NOCS_SYN_K = np.array([[577.5, 0, 319.5], [0., 577.5, 239.5], [0., 0., 1.]])
+NOCS_REAL_K = np.array([[591.0125, 0, 322.525], [0, 590.16775, 244.11084],
+                        [0, 0, 1]])
+NOCS_MODEL_HALF = (0.3, 0.4, 0.3)     # the .obj models' box, NPCS
+
+
+def random_rotation(rng):
+    q = rng.randn(4)
+    q /= np.linalg.norm(q)
+    w, x, y, z = q
+    return np.array([
+        [1 - 2*y*y - 2*z*z, 2*x*y - 2*z*w, 2*x*z + 2*y*w],
+        [2*x*y + 2*z*w, 1 - 2*x*x - 2*z*z, 2*y*z - 2*x*w],
+        [2*x*z - 2*y*w, 2*y*z + 2*x*w, 1 - 2*x*x - 2*y*y]])
+
+
+def write_raw_nocs(root, data_type, tracks, frames, block=(90, 60),
+                   instances=NOCS_RAW_INSTANCES, seed=0, hw=(480, 640)):
+    """Raw NOCS frames under <root>/nocs_full/<data_type>/<track>/ and an
+    .obj model an instance under <root>/obj_models/, written with the
+    port's `image_io.write_png`.  Each instance is a block of `block`
+    pixels at about 1 m (a sloped surface with +-2 mm of per-pixel noise)
+    in front of a background at 1.2 m, moving a pixel a frame down and
+    right; every object pixel's camera point is the exact backprojection
+    of its (row, col, depth), and its NOCS coord R^T (cam - t) / s
+    quantized to the PNG's 8 bits, with t the block's centroid and a
+    rotation and scale of the instance's own.  `real_*` types: 16-bit grey
+    depth, coord z stored negated; CAMERA types (`train`, `val`): every
+    image mirrored, the depth in 8-bit 3-channel composed form (G * 256 +
+    R) as `_depth.png` and `_composed.png`.  Returns the fixture's poses
+    {"<track>/<prefix>": {instance number: {rotation, scale,
+    translation}}}."""
+    import os
+    from os.path import join as pjoin
+
+    from captra_tpu_torch.data.image_io import write_png
+
+    real = data_type.startswith("real")
+    K = NOCS_REAL_K if real else NOCS_SYN_K
+    H, W = hw
+    bh, bw = block
+    rng = np.random.RandomState(seed)
+    obj = {n: (random_rotation(rng), 0.28 + 0.02 * k)
+           for k, (n, *_) in enumerate(instances)}
+    poses = {}
+    for track in tracks:
+        tdir = pjoin(root, "nocs_full", data_type, track)
+        os.makedirs(tdir, exist_ok=True)
+        for f in range(frames):
+            prefix = f"{f:04d}"
+            depth = (1200 + rng.randint(-2, 3, (H, W))).astype(np.uint16)
+            mask = np.full((H, W), 255, np.uint8)
+            coord = np.zeros((H, W, 3), np.uint8)
+            frame = {}
+            for k, (n, *_) in enumerate(instances):
+                R, s = obj[n]
+                r0 = H * 3 // 10 + f
+                c0 = W * (3 + 10 * k) // 40 + f
+                rr, cc = np.meshgrid(np.arange(r0, r0 + bh),
+                                     np.arange(c0, c0 + bw), indexing="ij")
+                d = (980 + 40 * k + (rr - r0) // 2 + (cc - c0) // 2
+                     + rng.randint(-2, 3, rr.shape)).astype(np.uint16)
+                depth[rr, cc] = d
+                mask[rr, cc] = n
+                dr = d.ravel().astype(np.float64)
+                cam = np.stack([(cc.ravel() - K[0, 2]) / K[0, 0] * dr,
+                                (H - rr.ravel() - K[1, 2]) / K[1, 1] * dr,
+                                -dr], -1) * 0.001
+                t = cam.mean(0)
+                npcs = ((cam - t) / s) @ R               # R^T (cam - t) / s
+                if np.abs(npcs).max() >= 0.5:
+                    raise ValueError(f"instance {n} leaves the NPCS cube")
+                if real:
+                    npcs[:, 2] = -npcs[:, 2]
+                q = np.clip(np.round((npcs + 0.5) * 255), 0, 255)
+                coord[rr.ravel(), cc.ravel()] = q.astype(np.uint8)[:, ::-1]
+                frame[n] = {"rotation": R, "scale": s,
+                            "translation": t.reshape(3, 1)}
+            poses[f"{track}/{prefix}"] = frame
+            masks = np.stack([mask] * 3, -1)
+            if real:
+                images = {"depth": depth}
+            else:
+                composed = np.zeros((H, W, 3), np.uint8)
+                composed[..., 1] = depth >> 8
+                composed[..., 2] = depth & 255
+                images = {"depth": composed, "composed": composed}
+            images.update(mask=masks, coord=coord,
+                          color=np.zeros((H, W, 3), np.uint8))
+            for name, img in images.items():
+                write_png(pjoin(tdir, f"{prefix}_{name}.png"),
+                          img if real else img[:, ::-1])
+            with open(pjoin(tdir, f"{prefix}_meta.txt"), "w") as fh:
+                for n, cls, synset, name in instances:
+                    print(f"{n} {cls} {name}" if real else
+                          f"{n} {cls} {synset} {name}", file=fh)
+    hx, hy, hz = NOCS_MODEL_HALF
+    for n, cls, synset, name in instances:
+        mdir = (pjoin(root, "obj_models", data_type) if real else
+                pjoin(root, "obj_models", data_type, synset, name))
+        os.makedirs(mdir, exist_ok=True)
+        with open(pjoin(mdir, f"{name}.obj" if real else "model.obj"),
+                  "w") as fh:
+            fh.write(f"v {-hx} {-hy} {-hz}\nv {hx} {hy} {hz}\nf 1 2 1\n")
+    return poses
+
+
+def pose_errors(got: dict, want: dict) -> tuple:
+    """(|scale diff|, max |translation diff|, rotation diff in degrees) of
+    two similarity poses."""
+    tr = np.trace(np.asarray(got["rotation"]).T @ want["rotation"])
+    rdiff = np.degrees(np.arccos(np.clip((tr - 1) / 2, -1, 1)))
+    return (abs(float(got["scale"]) - want["scale"]),
+            float(np.abs(np.asarray(got["translation"]).reshape(3)
+                         - want["translation"].reshape(3)).max()),
+            float(rdiff))
