@@ -10,24 +10,24 @@ stream over the `train` split (`syn_stream`), then the whole `real_train`
 split, then an evaluation on `real_test` (downsampled by --downsample),
 each logged as the JAX CLI logs it.  Checkpoints and resume as
 `cli/train.py`; the draws of each (epoch, phase) from their own generator
-on the device.  Not ported, each raising `NotImplementedError`:
-`--num_devices` > 1, `--ckpt_format orbax`.
+on the device.  `--ckpt_format orbax` and `--num_devices` as in
+`cli/train.py`: data-parallel ranks each take their shard of every global
+batch, rank 0 logs and saves.
 """
 from __future__ import annotations
 
 import argparse
-from os.path import join as pjoin
 
 import torch
 
 from captra_tpu_torch.cli.args import add_args, config_overrides
 from captra_tpu_torch.cli.train import (
-    INIT_SEED, check_unported, close_logger, resume, run_epoch, setup_logger,
+    INIT_SEED, _run, num_ranks, resume, run_epoch, save,
 )
 from captra_tpu_torch.config import get_config
 from captra_tpu_torch.data.loader import single_frame_batches
 from captra_tpu_torch.device import resolve_device
-from captra_tpu_torch.training import checkpoint as ckpt
+from captra_tpu_torch.parallel import mesh
 from captra_tpu_torch.training.trainer import Trainer
 
 
@@ -50,25 +50,38 @@ def syn_stream(dataset, batch_size: int, consumed: int):
         start = 0
 
 
-def main(argv=None, device=None):
-    device = resolve_device(device)
+def parse(argv=None):
+    """(args, cfg) of a finetune command line."""
     parser = add_args(argparse.ArgumentParser("captra-tpu-torch finetune"))
     parser.add_argument("--syn_n", type=int, default=1,
                         help="synthetic batches per real batch per epoch")
     parser.add_argument("--real_only", action="store_true", default=False)
     parser.add_argument("--downsample", type=int, default=None)
     args = parser.parse_args(argv)
-    check_unported(args)
-    cfg = get_config(args.config, config_overrides(args), args.config_dir)
-    logger = setup_logger(cfg.experiment_dir, "finetune")
-    try:
-        return _finetune(cfg, args, device, logger)
-    finally:
-        close_logger(logger)
+    return args, get_config(args.config, config_overrides(args),
+                            args.config_dir)
 
 
-def _finetune(cfg, args, device, logger):
+def main(argv=None, device=None):
+    device = resolve_device(device)
+    args, cfg = parse(argv)
+    n = num_ranks(args.num_devices, cfg.batch_size, device)
+    if n > 1:
+        mesh.launch(_rank_main, n, device, args=(argv,))
+        return None
+    return _run(_finetune, cfg, args, device, "finetune")
+
+
+def _rank_main(rank: int, world: int, device: str, argv) -> None:
+    args, cfg = parse(argv)
+    _run(_finetune, cfg, args, torch.device(device), "finetune",
+         mesh.data_parallel_mesh())
+
+
+def _finetune(cfg, args, device, logger, dp=None):
     from captra_tpu_torch.data.factory import make_dataset
+    if dp is not None:
+        logger.info("data parallel: %d ranks", dp.world)
     real_ds = make_dataset(cfg, "real_train")
     syn_ds = make_dataset(cfg, "train")
     real_len = max(1, len(real_ds) // cfg.batch_size)
@@ -81,14 +94,15 @@ def _finetune(cfg, args, device, logger):
         logger.info("no real_test split (%s); skipping per-epoch eval", e)
 
     trainer = Trainer(cfg, steps_per_epoch=real_len + syn_per_epoch,
-                      device=device)
+                      device=device, dp=dp)
     state = trainer.init_state(
         generator=torch.Generator().manual_seed(INIT_SEED))
     state, start_epoch = resume(trainer, state, cfg, args, logger)
+    if dp is not None:
+        mesh.replicate(state, dp)
     syn_cycle = syn_stream(syn_ds, cfg.batch_size,
                            consumed=start_epoch * syn_per_epoch)
 
-    ckpt_dir = pjoin(cfg.experiment_dir, "ckpt")
     for epoch in range(start_epoch, cfg.optim.total_epoch):
         trainer.set_epoch(epoch)
         phases = [] if args.real_only else [
@@ -100,7 +114,7 @@ def _finetune(cfg, args, device, logger):
                       phase=phase)
         if ((epoch + 1) % cfg.save_freq == 0
                 or epoch == cfg.optim.total_epoch - 1):
-            ckpt.save_train_state(ckpt_dir, epoch, state)
+            save(state, cfg, args, epoch, dp)
         if test_ds is not None:
             run_epoch(trainer, state, single_frame_batches(
                 test_ds, cfg.batch_size, shuffle=False), False, "Test",

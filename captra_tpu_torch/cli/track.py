@@ -31,9 +31,17 @@ Where the port differs from the JAX CLI:
   yields them as [1, B, P, 2, 3], the real-data layout), where the JAX CLI
   indexes the synthetic layout [B, P, 2, 3] as if it were that one.
 
-Not ported yet, each raising `NotImplementedError`: `--num_devices` > 1,
-orbax checkpoint directories.  `main(argv, device="cpu")` runs on the CPU;
-without it the card is required.
+Checkpoints of either format (pickle files, orbax directories) load.
+`--num_devices N` (default: the cards, or 1 on the CPU) tracks over N
+ranks of this machine (`parallel/mesh.py`; on CUDA one card a rank, more
+ranks than cards raise `ValueError`): a batch of B trajectories with
+B % N == 0 is sharded over the ranks, any other is tracked by rank 0
+alone, as the JAX CLI leaves such a batch unsharded.  The draws are made
+for the whole batch before it is sharded; rank 0 gathers the poses and
+outputs in trajectory order and prints, evaluates and saves as a
+one-rank run does (its frames/s counts every rank's frames over the wall
+time).  `main(argv, device="cpu")` runs on the CPU; without it the card
+is required.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import torch
 from captra_tpu_torch.cli.args import add_args, config_overrides
 from captra_tpu_torch.config import get_config
 from captra_tpu_torch.device import resolve_device
+from captra_tpu_torch.parallel import mesh
 from captra_tpu_torch.pose.part_dof import Pose
 from captra_tpu_torch.tracking.results import (
     corners_from_track_aux, save_track_result,
@@ -108,14 +117,21 @@ def _first(batch: dict, key: str):
 
 
 def track_sequences(cfg, step, sequences, save: bool = False,
-                    no_eval: bool = False, seed: int = 0, device=None):
+                    no_eval: bool = False, seed: int = 0, device=None,
+                    dp: mesh.DataParallel | None = None):
     """Track `sequences`, an iterator of (name | names-tuple, batch) with
     leading [T, B, ...]: the B trajectories of a batch track together.
     A batch carries points (and labels), or with `track_cfg/nocs_otf` depth
     and mask (and the crop's shift [T, B], else drawn here; and the NOCS-2D
     detections; a batch without depth then raises); "pose" (a `Pose` [T,
-    B, P]) and "corners" [T or 1, B, P, 2, 3] when it has GT.  Returns {metric: [per-trajectory average]}."""
+    B, P]) and "corners" [T or 1, B, P, 2, 3] when it has GT.  Returns {metric: [per-trajectory average]}.
+
+    Under `dp` every rank is given the same sequences: a batch whose B
+    the ranks divide is sharded over them and gathered on rank 0, any
+    other is tracked by rank 0 alone; only rank 0 prints, evaluates and
+    saves (the other ranks return {})."""
     device = resolve_device(device)
+    lead = dp is None or dp.rank == 0
     gen = torch.Generator().manual_seed(seed)
     all_avgs, total_frames, total_time = {}, 0, 0.0
     warmed: set[int] = set()
@@ -162,19 +178,33 @@ def track_sequences(cfg, step, sequences, save: bool = False,
         frames = {k: torch.as_tensor(np.asarray(v)).to(device)
                   for k, v in frames.items()}
         B = len(names)
-        if B not in warmed:
+        sharded = dp is not None and B % dp.world == 0
+        if sharded:
+            init_pose = mesh.shard_batch(init_pose, dp.rank, dp.world)
+            frames = mesh.shard_batch(frames, dp.rank, dp.world,
+                                      batch_dim=1)
+        elif not lead:
+            continue
+        b_local = B // dp.world if sharded else B
+        if b_local not in warmed:
             # one untimed warm-up per batch size: the first call builds
             # the FPS kernels
             track_trajectory(step, init_pose,
                              {k: v[:WARMUP_FRAMES] for k, v in frames.items()},
                              device=device)
             _sync(device)
-            warmed.add(B)
+            warmed.add(b_local)
         _sync(device)
+        if sharded:
+            dp.barrier()
         t0 = time.perf_counter()
         _, aux = track_trajectory(step, init_pose, frames, device=device)
+        if sharded:
+            aux = mesh.gather_batch(aux, dp, batch_dim=1)
         _sync(device)
         dt = time.perf_counter() - t0
+        if not lead:
+            continue
         total_frames += (T - 1) * B
         total_time += dt
         print(f"{'|'.join(names)}: {T - 1} frames x {B} in {dt:.3f}s "
@@ -275,23 +305,38 @@ def parse(argv=None):
     """(args, cfg) of a track command line."""
     parser = add_args(argparse.ArgumentParser("captra-tpu-torch track"))
     args = parser.parse_args(argv)
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(
-            f"--num_devices={args.num_devices}: the port tracks on one "
-            "device")
     return args, get_config(args.config, config_overrides(args),
                             args.config_dir)
 
 
 def main(argv=None, device=None):
+    """Track as the command line says; returns rank 0's {metric:
+    [per-trajectory average]}."""
+    from captra_tpu_torch.cli.train import num_ranks
     device = resolve_device(device)
     args, cfg = parse(argv)
+    n = num_ranks(args.num_devices, None, device)
     cv, rv = load_variables(cfg, args)
+    if n > 1:
+        return mesh.launch(_rank_main, n, device, args=(argv, cv, rv))[0]
+    return run_tracking(args, cfg, cv, rv, device)
+
+
+def _rank_main(rank: int, world: int, device: str, argv, cv, rv) -> dict:
+    args, cfg = parse(argv)
+    return run_tracking(args, cfg, cv, rv, torch.device(device),
+                        mesh.data_parallel_mesh())
+
+
+def run_tracking(args, cfg, cv, rv, device, dp=None) -> dict:
+    """Track as `args` say with the nets of flax variables cv / rv on
+    `device`, over the group `dp` (rank 0 gathers, prints and saves);
+    returns the per-trajectory averages (rank 0's)."""
     step = build_step(cfg, cv, rv, device=device)
     sequences = (synthetic_sequences(cfg) if args.synthetic_data
                  else dataset_sequences(cfg, args.mode_name))
     return track_sequences(cfg, step, sequences, save=args.save,
-                           no_eval=args.no_eval, device=device)
+                           no_eval=args.no_eval, device=device, dp=dp)
 
 
 if __name__ == "__main__":

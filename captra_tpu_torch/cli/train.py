@@ -21,9 +21,19 @@ resumed run replays an uninterrupted one.  The JAX CLI's `jax.random`
 streams cannot be reproduced; the synthetic batches and the dataset's frame
 order and point shuffle are the JAX package's.
 
-Not ported, each raising `NotImplementedError`: `--num_devices` > 1,
-`--ckpt_format orbax`.  `main(argv, device="cpu")` runs on the CPU;
-without it the card is required.
+`--ckpt_format orbax` writes orbax checkpoint directories through
+tensorstore (`training/orbax_io.py`; without tensorstore it raises
+`ImportError` naming it); resume reads either format.
+
+`--num_devices N` (default: the cards, or 1 on the CPU; lowered until it
+divides the batch, the JAX CLI's rule) trains data-parallel over N ranks
+of this machine (`parallel/mesh.py`: gloo on the CPU, NCCL on CUDA with
+one card a rank; more ranks than cards raise `ValueError`, where the JAX
+CLI's `devs[:n]` shrinks the mesh).  Every rank builds the same global
+batch and takes its shard; the step is the single-device step on the
+global batch.  Rank 0 logs and writes the checkpoints while the others
+wait at a barrier; `main` then returns None.  `main(argv, device="cpu")`
+runs on the CPU; without it the card is required.
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ from captra_tpu_torch.config import get_config
 from captra_tpu_torch.data.loader import prefetch, single_frame_batches
 from captra_tpu_torch.data.synthetic import make_frame_batch
 from captra_tpu_torch.device import resolve_device
+from captra_tpu_torch.parallel import mesh
 from captra_tpu_torch.training import checkpoint as ckpt
 from captra_tpu_torch.training.trainer import Trainer
 
@@ -49,15 +60,21 @@ AUG_SEED = 42               # --device_aug's poses (the JAX CLI's PRNGKey(42))
 INIT_SEED = 0               # the nets' xavier draw
 
 
-def setup_logger(experiment_dir: str, name: str) -> logging.Logger:
-    log_dir = pjoin(experiment_dir, "log")
-    os.makedirs(log_dir, exist_ok=True)
+def setup_logger(experiment_dir: str, name: str,
+                 quiet: bool = False) -> logging.Logger:
+    """The run's logger: `<exp>/log/log.txt` and the console, or nothing
+    with `quiet` (the ranks after 0 of a data-parallel run)."""
     logger = logging.getLogger(f"captra_tpu_torch.{name}")
     logger.setLevel(logging.INFO)
     logger.propagate = False
     for h in list(logger.handlers):
         logger.removeHandler(h)
         h.close()
+    if quiet:
+        logger.addHandler(logging.NullHandler())
+        return logger
+    log_dir = pjoin(experiment_dir, "log")
+    os.makedirs(log_dir, exist_ok=True)
     fh = logging.FileHandler(pjoin(log_dir, "log.txt"))
     fh.setFormatter(logging.Formatter(
         "%(asctime)s - %(name)s - %(levelname)s - %(message)s"))
@@ -120,15 +137,39 @@ def device_aug_epoch(sampler, epoch: int, steps: int, device: torch.device):
         yield sampler(gen)
 
 
-def check_unported(args) -> None:
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(
-            f"--num_devices={args.num_devices}: the port trains on one "
-            "device")
-    if args.ckpt_format != "pickle":
-        raise NotImplementedError(
-            f"--ckpt_format={args.ckpt_format}: the port writes the pickle "
-            "format")
+def num_ranks(requested: int | None, batch_size: int | None,
+              device: torch.device) -> int:
+    """The data-parallel ranks of a run: `requested` (--num_devices), else
+    the cards (1 on the CPU), lowered until it divides `batch_size` (the
+    JAX CLI's rule; None: no batch to divide).  On CUDA, more ranks than
+    cards raise ValueError."""
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = max(requested or cards, 1)
+    while batch_size and batch_size % n:
+        n -= 1
+    if device.type == "cuda" and n > cards:
+        raise ValueError(f"--num_devices asks for {n} ranks and this "
+                         f"machine has {cards} cards (one card a rank)")
+    return n
+
+
+def shards(batches, dp: mesh.DataParallel | None):
+    """This rank's shard of each global batch (the batches as given
+    without `dp`)."""
+    for batch in batches:
+        yield batch if dp is None else mesh.shard_batch(batch, dp.rank,
+                                                        dp.world)
+
+
+def save(state, cfg, args, epoch: int, dp: mesh.DataParallel | None):
+    """Rank 0 writes the epoch's checkpoint in `--ckpt_format`; the other
+    ranks wait for it at a barrier."""
+    if dp is None or dp.rank == 0:
+        ckpt.save_train_state(pjoin(cfg.experiment_dir, "ckpt"), epoch,
+                              state, format=args.ckpt_format,
+                              grad_clip=cfg.optim.grad_clip)
+    if dp is not None:
+        dp.barrier()
 
 
 def resume(trainer: Trainer, state, cfg, args, logger):
@@ -148,12 +189,14 @@ def resume(trainer: Trainer, state, cfg, args, logger):
 
 def run_epoch(trainer: Trainer, state, batches, train: bool, tag: str,
               epoch: int, logger, phase: int | None = None) -> int:
-    """Train (or evaluate) over `batches`; the losses and metrics are summed
-    on the device and logged, once an epoch, as their means."""
+    """Train (or evaluate) over `batches` (global batches: under the
+    trainer's `dp`, each rank steps on its shard); the global losses and
+    metrics are summed on the device and logged, once an epoch, as their
+    means."""
     gen = phase_generator(trainer.device, epoch,
                           (0 if train else 1) if phase is None else phase)
     sums, count = None, 0
-    for batch in prefetch(batches):
+    for batch in prefetch(shards(batches, trainer.dp)):
         if train:
             state, loss_dict, metrics = trainer.train_step(
                 state, batch, generator=gen)
@@ -170,39 +213,64 @@ def run_epoch(trainer: Trainer, state, batches, train: bool, tag: str,
     return count
 
 
-def main(argv=None, device=None):
-    device = resolve_device(device)
+def parse(argv=None):
+    """(args, cfg) of a train command line."""
     parser = add_args(argparse.ArgumentParser("captra-tpu-torch train"))
     args = parser.parse_args(argv)
-    check_unported(args)
     if args.device_aug and not args.synthetic_data:
         raise SystemExit("--device_aug resamples poses over generated "
                          "geometry and requires --synthetic_data")
-    cfg = get_config(args.config, config_overrides(args), args.config_dir)
-    logger = setup_logger(cfg.experiment_dir, "train")
+    return args, get_config(args.config, config_overrides(args),
+                            args.config_dir)
+
+
+def main(argv=None, device=None):
+    device = resolve_device(device)
+    args, cfg = parse(argv)
+    n = num_ranks(args.num_devices, cfg.batch_size, device)
+    if n > 1:
+        mesh.launch(_rank_main, n, device, args=(argv,))
+        return None
+    return _run(_train, cfg, args, device, "train")
+
+
+def _run(body, cfg, args, device, name, dp=None):
+    logger = setup_logger(cfg.experiment_dir, name,
+                          quiet=dp is not None and dp.rank > 0)
     try:
-        return _train(cfg, args, device, logger)
+        return body(cfg, args, device, logger, dp)
     finally:
         close_logger(logger)
 
 
-def _train(cfg, args, device, logger):
+def _rank_main(rank: int, world: int, device: str, argv) -> None:
+    args, cfg = parse(argv)
+    _run(_train, cfg, args, torch.device(device), "train",
+         mesh.data_parallel_mesh())
+
+
+def _train(cfg, args, device, logger, dp=None):
     from captra_tpu_torch.data.factory import make_dataset
     logger.info("config: %s", cfg)
     if args.use_val and args.synthetic_data:
         logger.info("--use_val is ignored with --synthetic_data "
                     "(no disk splits)")
     logger.info("device: %s", device)
+    if dp is not None:
+        logger.info("data parallel: %d ranks", dp.world)
 
     steps_per_epoch = SYNTHETIC_STEPS
     train_ds = None
     if not args.synthetic_data:
         train_ds = make_dataset(cfg, "train")
         steps_per_epoch = max(1, len(train_ds) // cfg.batch_size)
-    trainer = Trainer(cfg, steps_per_epoch=steps_per_epoch, device=device)
+    trainer = Trainer(cfg, steps_per_epoch=steps_per_epoch, device=device,
+                      dp=dp)
     state = trainer.init_state(
         generator=torch.Generator().manual_seed(INIT_SEED))
     state, start_epoch = resume(trainer, state, cfg, args, logger)
+    if dp is not None:
+        mesh.replicate(state, dp)
 
     test_ds, val_ds = None, None
     if not args.synthetic_data:
@@ -219,7 +287,6 @@ def _train(cfg, args, device, logger):
 
     sampler = (make_device_aug_sampler(cfg, args.geom_pool, device)
                if args.device_aug else None)
-    ckpt_dir = pjoin(cfg.experiment_dir, "ckpt")
     for epoch in range(start_epoch, cfg.optim.total_epoch):
         trainer.set_epoch(epoch)
         if sampler is not None:
@@ -237,7 +304,7 @@ def _train(cfg, args, device, logger):
                     time.time() - t0)
         if ((epoch + 1) % cfg.save_freq == 0
                 or epoch == cfg.optim.total_epoch - 1):
-            ckpt.save_train_state(ckpt_dir, epoch, state)
+            save(state, cfg, args, epoch, dp)
         if test_ds is not None:
             run_epoch(trainer, state, single_frame_batches(
                 test_ds, cfg.batch_size, shuffle=False), False, "Test",

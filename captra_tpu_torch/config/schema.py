@@ -314,6 +314,11 @@ class _frozen(dict):
 
     __setitem__ = __delitem__ = update = pop = popitem = clear = _blocked
 
+    def __reduce__(self):
+        # pickled as a call with its items (a dict's pickle would set them
+        # one by one), so a Config can go to another process
+        return (_frozen, (dict(self),))
+
 
 def frozen_map(d: Mapping) -> Mapping:
     return _frozen(d)

@@ -33,6 +33,7 @@ import numpy as np
 from captra_tpu_torch.config.schema import ObjCfg, PerturbCfg
 from captra_tpu_torch.data import image_io
 from captra_tpu_torch.data import numpy_ops as nops
+from captra_tpu_torch.utils.misc import written_whole
 
 # real_test sub-splits keyed by category keyword (nocs_data_process.py:57-66)
 _EXTRA_SPLITS = {"bottle": ["shampoo_norm/scene_4"], "can": ["lotte"]}
@@ -64,7 +65,7 @@ def split_nocs_dataset(root_dset: str, obj_category: str, num_expr: str,
         keywords = _EXTRA_SPLITS[extra]
         data_list = [f for f in data_list
                      if any(k in f for k in keywords)]
-    with open(pjoin(output_path, f"{mode}.txt"), "w") as f:
+    with written_whole(pjoin(output_path, f"{mode}.txt")) as f:
         f.writelines(item + "\n" for item in data_list)
     return data_list
 

@@ -31,6 +31,7 @@ import numpy as np
 from captra_tpu_torch.config.schema import ObjCfg
 from captra_tpu_torch.data import numpy_ops as nops
 from captra_tpu_torch.data.blur import gaussian_blur
+from captra_tpu_torch.utils.misc import written_whole
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +308,7 @@ class SAPIENDataset:
                     num_parts=(self.obj_cfg.num_parts if self.synthetic
                                else None))
                 os.makedirs(os.path.dirname(cloud_cache), exist_ok=True)
-                with open(cloud_cache, "wb") as f:
+                with written_whole(cloud_cache, "wb") as f:
                     pickle.dump({"cam": cam_points, "seg": seg}, f)
             with open(pjoin(base, "gt", f"{frame_i}.pkl"), "rb") as f:
                 gt = pickle.load(f)
@@ -318,7 +319,7 @@ class SAPIENDataset:
                                            cam_points, seg, cam2world,
                                            link2world)
             os.makedirs(os.path.dirname(full_path), exist_ok=True)
-            with open(full_path, "wb") as f:
+            with written_whole(full_path, "wb") as f:
                 pickle.dump(full_data, f)
 
         info = self.model_info(instance)

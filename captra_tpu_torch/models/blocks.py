@@ -26,6 +26,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from captra_tpu_torch.parallel import mesh
+
 _ACTIVATIONS = {
     "relu": F.relu,
     "none": lambda x: x,
@@ -54,25 +56,66 @@ class BatchNorm(nn.BatchNorm1d):
     E[x^2] - E[x]^2 in float32, clamped at 0 (flax's `use_fast_variance`;
     torch's is unbiased, n / (n - 1) larger), mixed in with flax's momentum
     `1 - self.momentum`, and an entry that comes out non-finite keeps its
-    old value (the JAX trainer's guard, trainer.py:352-354)."""
+    old value (the JAX trainer's guard, trainer.py:352-354).
+
+    In train mode under an active data-parallel group
+    (`parallel.mesh.active`), the statistics are the global batch's, as
+    under the JAX package's mesh.  Each rank puts its rows' mean and
+    centred sum of squares in its own slot of a [ranks, 2, C] tensor, and
+    one differentiable all-reduce (its backward carries every rank's
+    gradient of the statistics back to each rank's rows, as
+    SyncBatchNorm's does) gives every rank all of them; the global mean
+    and biased variance follow from them exactly (Chan et al.'s
+    combination: the sum of the ranks' centred sums plus each rank's rows
+    times the square of its mean's distance to the global mean).  A
+    single [sum, sum of squares] all-reduce, E[x^2] - E[x]^2, cancels in
+    float32: at batch 12 x 4096 on the card it moved the CoordNet's
+    losses by 2.4e-3 of the single-process step's.  The output and the
+    running statistics use the global statistics."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(
                 x.reshape(-1, x.shape[-1])).reshape(x.shape)
         flat = x.reshape(-1, x.shape[-1]).to(_stat_dtype(x.dtype))
-        y = F.batch_norm(flat, None, None, self.weight, self.bias,
-                         training=True, eps=self.eps)
+        dp = mesh.current()
+        if dp is None:
+            y = F.batch_norm(flat, None, None, self.weight, self.bias,
+                             training=True, eps=self.eps)
+            with torch.no_grad():
+                mean = flat.mean(dim=0)
+                var = torch.clamp_min(
+                    (flat * flat).mean(dim=0) - mean * mean, 0.0)
+        else:
+            mean, var = _global_moments(flat, dp)
+            y = ((flat - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+                 + self.bias)
+            mean, var = mean.detach(), var.detach()
         with torch.no_grad():
-            mean = flat.mean(dim=0)
-            var = torch.clamp_min((flat * flat).mean(dim=0) - mean * mean,
-                                  0.0)
             m = 1.0 - self.momentum
             for stat, batch in ((self.running_mean, mean),
                                 (self.running_var, var)):
                 new = m * stat + (1.0 - m) * batch
                 stat.copy_(torch.where(torch.isfinite(new), new, stat))
         return y.reshape(x.shape).to(x.dtype)
+
+
+def _global_moments(flat: torch.Tensor, dp):
+    """The mean and biased variance [C] of the rows of `flat` [n, C] on
+    every rank of `dp` (equal n a rank), differentiable, from one
+    all-reduce of each rank's (mean, centred sum of squares)."""
+    local_mean = flat.mean(dim=0)
+    m2 = torch.square(flat - local_mean).sum(dim=0)
+    slots = torch.zeros((dp.world, 2, flat.shape[1]), dtype=flat.dtype,
+                        device=flat.device)
+    slots = slots.index_copy(0, torch.tensor([dp.rank], device=flat.device),
+                             torch.stack([local_mean, m2])[None])
+    means, m2s = dp.all_reduce(slots).unbind(1)        # [ranks, C] each
+    mean = means.mean(dim=0)
+    n = flat.shape[0]
+    var = (m2s.sum(dim=0) + n * torch.square(means - mean).sum(dim=0)) / (
+        n * dp.world)
+    return mean, var
 
 
 def set_bn_momentum(module: nn.Module, bn_momentum: float) -> None:

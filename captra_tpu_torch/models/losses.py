@@ -4,16 +4,52 @@ Pure functions of fixed-shape tensors.  The symmetric NOCS pairwise term's
 random point sample is explicit: `sym_nocs_loss` takes the sampled indices
 [B, M], or draws them from a `torch.Generator` (`draw_pwm_indices`), where
 the JAX function draws them with `jax.random.categorical`.
+
+Under an active data-parallel group (`parallel.mesh.active`) each rank's
+loss is its share of the global batch's: a mean over the batch is the
+rank's sum over the global count (`batch_mean`), a masked ratio the rank's
+sum over the global mask count (`masked_ratio`, the count all-reduced
+outside autograd: it only divides) and a constant term the constant over
+the ranks (`share`).  So the ranks' losses add up to the single-device
+loss on the global batch, and so do their gradients.
 """
 from __future__ import annotations
 
 import torch
 
+from captra_tpu_torch.parallel import mesh
 from captra_tpu_torch.pose.part_dof import Pose, apply_pose
 from captra_tpu_torch.pose.rotations import matrix_to_rotvec
 from captra_tpu_torch.utils.precision import f32_precision
 
 EPS = 1e-6
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of every entry of `x` (leading axis the batch), or under a
+    data-parallel group this rank's share of the global mean: its sum over
+    the global count (equal shards)."""
+    dp = mesh.current()
+    if dp is None:
+        return torch.mean(x)
+    return torch.sum(x) / (x.numel() * dp.world)
+
+
+def masked_ratio(num: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """num / max(count, 1) for a masked sum and its mask count, or under a
+    data-parallel group this rank's num over the global count (summed over
+    the ranks outside autograd)."""
+    dp = mesh.current()
+    if dp is not None:
+        count = dp.all_reduce_(count.detach().clone())
+    return num / torch.clamp(count, min=1.0)
+
+
+def share(value: float) -> float:
+    """A constant term of a loss: `value`, or its share on each rank of a
+    data-parallel group."""
+    dp = mesh.current()
+    return value if dp is None else value / dp.world
 
 
 def safe_norm(x: torch.Tensor, dim=-1) -> torch.Tensor:
@@ -39,7 +75,7 @@ def miou_loss(pred: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     inter = torch.sum(pred * gt, dim=-2)           # [B, C]
     union = torch.sum(pred + gt, dim=-2) - inter
     miou = inter / (union + EPS)
-    return 1.0 - torch.mean(miou)
+    return share(1.0) - batch_mean(miou)
 
 
 # ---------------------------------------------------------------------------
@@ -66,20 +102,25 @@ def nocs_loss(nocs_pred: torch.Tensor, nocs_gt: torch.Tensor,
     pred = choose_coord_by_label(nocs_pred, labels, num_parts)
     raw = safe_norm(pred - nocs_gt, dim=-1)  # [B, N]
     mask = (labels < num_parts).float()
-    return torch.sum(raw * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return masked_ratio(torch.sum(raw * mask), torch.sum(mask))
 
 
 def draw_pwm_indices(labels: torch.Tensor, pwm_num: int,
-                     generator: torch.Generator) -> torch.Tensor:
+                     generator: torch.Generator,
+                     rows: tuple[int, int] | None = None) -> torch.Tensor:
     """`pwm_num` indices a row [B, M] (int64), uniform over the row's points
     with label 0, or over all its points when it has none (the JAX
     function's categorical over logits 0 / -1e9), drawn by inverse CDF from
-    `generator` (on the labels' device)."""
+    `generator` (on the labels' device).  rows=(first, total): `labels`
+    are rows first.. of a batch of `total` rows, and the uniforms are drawn
+    for all of them (the draws of that batch, these rows taken)."""
     w = (labels == 0).float()
     w = torch.where(w.sum(dim=-1, keepdim=True) > 0, w, torch.ones_like(w))
     cdf = torch.cumsum(w, dim=-1)
-    u = torch.rand((labels.shape[0], pwm_num), generator=generator,
-                   device=labels.device) * cdf[:, -1:]
+    B = labels.shape[0]
+    first, total = rows or (0, B)
+    u = torch.rand((total, pwm_num), generator=generator,
+                   device=labels.device)[first:first + B] * cdf[:, -1:]
     idx = torch.searchsorted(cdf, u, right=True)
     return torch.clamp(idx, max=labels.shape[1] - 1)
 
@@ -93,7 +134,8 @@ def sym_nocs_loss(nocs_pred: torch.Tensor, nocs_gt: torch.Tensor,
     Returns (dist_loss, pwm_loss).
 
     The sample is explicit: pwm_idx [B, M], else drawn from `generator`
-    (`draw_pwm_indices`), else this raises."""
+    (`draw_pwm_indices`; under a data-parallel group, the global batch's
+    draw, this rank's rows), else this raises."""
     pred = choose_coord_by_label(nocs_pred, labels, num_parts)
     x_gt, y_gt, z_gt = nocs_gt.unbind(-1)
     x_p, y_p, z_p = pred.unbind(-1)
@@ -101,14 +143,16 @@ def sym_nocs_loss(nocs_pred: torch.Tensor, nocs_gt: torch.Tensor,
         x_gt ** 2 + z_gt ** 2 - x_p ** 2 - z_p ** 2) + 1e-8)
     fmask = (labels == 0).float()
     valid = (torch.sum(fmask, dim=-1) > 0).float()  # [B]
-    dist_loss = torch.sum(dist * fmask) / torch.clamp(torch.sum(fmask),
-                                                      min=1.0)
+    dist_loss = masked_ratio(torch.sum(dist * fmask), torch.sum(fmask))
 
     if pwm_idx is None:
         if generator is None:
             raise ValueError("sym_nocs_loss needs its sample (pwm_idx=) or "
                              "a torch.Generator")
-        pwm_idx = draw_pwm_indices(labels, pwm_num, generator)
+        dp, B = mesh.current(), labels.shape[0]
+        pwm_idx = draw_pwm_indices(
+            labels, pwm_num, generator,
+            rows=None if dp is None else (dp.rank * B, B * dp.world))
     idx = pwm_idx.long()[..., None].expand(-1, -1, 3)
 
     def dist_mat(p):
@@ -118,8 +162,7 @@ def sym_nocs_loss(nocs_pred: torch.Tensor, nocs_gt: torch.Tensor,
     s_pred = torch.gather(pred, 1, idx)
     pwm = torch.mean(torch.abs(dist_mat(s_gt) - dist_mat(s_pred)),
                      dim=(-1, -2))
-    pwm_loss = torch.sum(pwm * valid) / torch.clamp(torch.sum(valid),
-                                                    min=1.0)
+    pwm_loss = masked_ratio(torch.sum(pwm * valid), torch.sum(valid))
     return dist_loss, pwm_loss
 
 
@@ -179,16 +222,17 @@ def point_pose_loss(gt_pose: Pose, pred_pose: Pose, pts: torch.Tensor,
         dist = torch.sum(diff ** 2, dim=-1)
     else:
         dist = safe_norm(diff, dim=-1)
-    return torch.mean(dist), dist
+    return batch_mean(dist), dist
 
 
 def part_dof_loss(gt: Pose, pred: Pose, loss_type) -> dict:
     """s / t / r losses, means."""
     return {
-        "sloss": torch.mean(scale_loss(gt.scale, pred.scale, loss_type["s"])),
-        "tloss": torch.mean(trans_loss(gt.translation, pred.translation,
+        "sloss": batch_mean(scale_loss(gt.scale, pred.scale,
+                                       loss_type["s"])),
+        "tloss": batch_mean(trans_loss(gt.translation, pred.translation,
                                        loss_type["t"])),
-        "rloss": torch.mean(rot_trace_loss(gt.rotation, pred.rotation,
+        "rloss": batch_mean(rot_trace_loss(gt.rotation, pred.rotation,
                                            loss_type["r"])),
     }
 

@@ -17,7 +17,10 @@ walk:
 the port writes checkpoints in the JAX package's layout
 (`training/checkpoint.py`).  `optimizer_tree` / `restore_optimizer` map a
 training state's optimizer moments to and from flax-named trees (the port's
-checkpoint layout) and read a JAX checkpoint's optax state.
+checkpoint layout) and read a JAX checkpoint's optax state;
+`optax_leaves` / `restore_optax_leaves` map them to and from the flat leaf
+list of the JAX package's optax chain (the orbax format's
+`opt_state_leaves`).
 
 The reference's released torch checkpoints (`.pt` / `.tar`: {epoch,
 iteration, model: state_dict, optimizer}, reference trainer.py:196-210) map
@@ -59,7 +62,10 @@ def _leaves(tree: Mapping, path: tuple = ()):
         if isinstance(value, Mapping):
             yield from _leaves(value, path + (key,))
         else:
-            yield path + (key,), np.asarray(value, np.float32)
+            value = np.asarray(value)
+            # float64 trees (a JAX state under x64) keep their precision
+            yield path + (key,), (value if value.dtype == np.float64
+                                  else value.astype(np.float32))
 
 
 def _torch_leaf(name: str, value: np.ndarray) -> np.ndarray:
@@ -227,6 +233,63 @@ def restore_optimizer(opt_state, state) -> dict:
             views[key].copy_(value)
         out[name] = flat
     return out
+
+
+def _sorted_leaves(tree: Mapping, path: tuple = ()):
+    """(path, leaf) of a nested dict in JAX's flatten order (keys sorted
+    at every level)."""
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, Mapping):
+            yield from _sorted_leaves(value, path + (key,))
+        else:
+            yield path + (key,), value
+
+
+def optax_leaves(state, grad_clip: float) -> list[np.ndarray]:
+    """The flat leaves (`jax.tree.leaves`) of the JAX package's optax
+    chain state (`captra_tpu/training/trainer.py::make_optimizer`) that
+    holds a TrainState's moments.  The chain is `zero_nans`, `clip`,
+    `clip_by_global_norm` (only when `grad_clip` > 0, the config's
+    `optim.grad_clip`), `add_decayed_weights`, `scale_by_adam` or
+    `trace`, `scale_by_learning_rate`; its leaves are, each tree in
+    sorted key order: ZeroNansState's `found_nan` (one bool a parameter,
+    written False: the port does not keep it), ScaleByAdamState's count,
+    mu, nu (or TraceState's trace), then ScaleByScheduleState's count."""
+    kind = "adam" if "mu" in state.opt_state else "sgd"
+    params = list(_sorted_leaves(flat_tree(state, state.params)))
+    count = np.asarray(state.opt_state["count"], np.int32)
+    leaves = [np.asarray(False)] * len(params) if grad_clip > 0 else []
+    if kind == "adam":
+        leaves.append(count)
+    for name in _MOMENTS[kind]:
+        leaves += [v for _, v in _sorted_leaves(
+            flat_tree(state, state.opt_state[name]))]
+    leaves.append(count)
+    return leaves
+
+
+def restore_optax_leaves(leaves, state) -> dict:
+    """The optimizer state of `state` (Adam or SGD) rebuilt from the flat
+    optax leaves `optax_leaves` describes, in flatten order; whether the
+    chain clips is read from their count.  Raises ValueError when the
+    count fits neither layout."""
+    kind = "adam" if "mu" in state.opt_state else "sgd"
+    paths = [p for p, _ in _sorted_leaves(flat_tree(state, state.params))]
+    n, names = len(paths), _MOMENTS[kind]
+    body = len(names) * n + (2 if kind == "adam" else 1)
+    if len(leaves) not in (body, body + n):
+        raise ValueError(f"{len(leaves)} optimizer leaves fit no {kind} "
+                         f"chain over {n} parameters")
+    rest = list(leaves[len(leaves) - body:])
+    count = rest.pop(0) if kind == "adam" else rest[-1]
+    trees = {}
+    for i, name in enumerate(names):
+        tree: dict = {}
+        for path, value in zip(paths, rest[i * n:(i + 1) * n]):
+            _put(tree, path, value)
+        trees[name] = tree
+    return restore_optimizer({"count": count, **trees}, state)
 
 
 def _put(tree: dict, path: tuple, value) -> None:

@@ -30,6 +30,17 @@ the symmetric NOCS loss's sample come from `draws` (what
 `models.losses.draw_pwm_indices` give) or from a `torch.Generator`.
 `train_step` updates the state in place and returns it; its losses and
 metrics stay on the device.
+
+Data parallelism (`Trainer(..., dp=)`, a `parallel.mesh.DataParallel`):
+each rank steps on its shard of the global batch.  Its forward runs under
+`mesh.active(dp)`, so BatchNorm normalises with the global statistics and
+each loss is the rank's share of the global batch's; after `backward` one
+all-reduce adds the ranks' flat gradients, and the optimizer (the same on
+every rank) sees the global gradient, as the JAX step over a mesh does.
+Draws taken from a generator are drawn over the global batch from the
+same generator on every rank, which then takes its rows; draws given
+(`draws=`) are this rank's rows.  The returned losses and metrics are
+the global batch's (one all-reduce of their values).
 """
 from __future__ import annotations
 
@@ -49,6 +60,7 @@ from captra_tpu_torch.models.coordnet import CoordNet, canonicalize, solve_st
 from captra_tpu_torch.models.rotnet import (
     RotNet, canonicalize_per_part, decode_rotation,
 )
+from captra_tpu_torch.parallel import mesh
 from captra_tpu_torch.pose import bbox as bbox_utils
 from captra_tpu_torch.pose.part_dof import (
     Pose, add_noise_to_pose, compute_parts_delta_pose, draw_pose_noise,
@@ -240,17 +252,23 @@ def _init_pose(cfg: Config, batch: dict, draws: dict,
     if "init_pose" in batch:
         return batch["init_pose"]
     p = cfg.perturb
+    noise, dp = draws.get("noise"), mesh.current()
+    if noise is None and dp is not None and generator is not None:
+        # the global batch's draws, this rank's rows
+        shape = batch["pose"].scale.shape
+        noise = mesh.shard_batch(draw_pose_noise(
+            (shape[0] * dp.world, *shape[1:]), p.kind, generator), dp.rank,
+            dp.world)
     init_part = add_noise_to_pose(
         batch["pose"], rot_rad=float(np.deg2rad(p.r)), trans_sigma=p.t,
-        scale_sigma=p.s, kind=p.kind, noise=draws.get("noise"),
-        generator=generator)
+        scale_sigma=p.s, kind=p.kind, noise=noise, generator=generator)
     return _apply_crop_pose(init_part, batch)
 
 
 def _metrics(gt: Pose, pred: Pose, sym: bool) -> dict:
     with torch.no_grad():
         pred = pred.map(torch.Tensor.detach)
-        return {k: torch.mean(v) for k, v in
+        return {k: L.batch_mean(v) for k, v in
                 eval_part_full(gt, pred, yaxis_only=sym).items()}
 
 
@@ -341,8 +359,7 @@ def rotnet_loss(cfg: Config, module: RotNet, batch: dict,
         rl = L.rot_trace_loss(gt_rot, point_rot,
                               metric=cfg.pose_loss_type["r"])
     mask = labels_to_part_mask(labels, obj.num_parts)
-    loss_dict["rloss"] = torch.sum(rl * mask) / torch.clamp(torch.sum(mask),
-                                                            min=1.0)
+    loss_dict["rloss"] = L.masked_ratio(torch.sum(rl * mask), torch.sum(mask))
     gt_box = _gt_bbox(batch["corners"], obj.sym)
     loss_dict["corner_loss"], _ = L.point_pose_loss(
         gt, pred_part, gt_box, metric=cfg.pose_loss_type["point"])
@@ -357,12 +374,17 @@ def rotnet_loss(cfg: Config, module: RotNet, batch: dict,
 class Trainer:
     """Builds the net, the optimizer and the steps for `network.type`:
     canon_coord -> CoordNet, rot -> RotNet; on `device` (CUDA unless
-    given; raises without a card)."""
+    given; raises without a card).  With `dp` (a
+    `parallel.mesh.DataParallel`) its steps take this rank's shard of a
+    global batch and step as the single-device trainer does on the
+    global batch."""
 
     def __init__(self, cfg: Config, steps_per_epoch: int = 100,
-                 epoch: int = 0, device=None):
+                 epoch: int = 0, device=None,
+                 dp: mesh.DataParallel | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dp = dp
         self.steps_per_epoch = steps_per_epoch
         net_type = cfg.network.type
         if net_type == "canon_coord":
@@ -439,15 +461,19 @@ class Trainer:
         module.train()
         batch = to_device(batch, self.device)
         state.grads.zero_()
-        total, (loss_dict, metrics) = self.loss_fn(
-            self.cfg, module, batch, draws=draws, generator=generator)
-        total.backward()
+        with mesh.active(self.dp):
+            total, (loss_dict, metrics) = self.loss_fn(
+                self.cfg, module, batch, draws=draws, generator=generator)
+            total.backward()
         self._check_grads(state)
+        if self.dp is not None:
+            self.dp.all_reduce_(state.grads)
         state.opt_state = self.tx.step(state.opt_state, state.params,
                                        state.grads)
         state.step += 1
         loss_dict = {k: v.detach() for k, v in loss_dict.items()}
         loss_dict["total_loss"] = total.detach()
+        loss_dict, metrics = self._global(loss_dict, metrics)
         return state, loss_dict, metrics
 
     def eval_step(self, state: TrainState, batch: dict,
@@ -460,13 +486,25 @@ class Trainer:
         module.eval()
         kw = ({"use_pred_labels": True}
               if self.cfg.network.type == "canon_coord" else {})
-        with torch.no_grad():
+        batch = to_device(batch, self.device)
+        with torch.no_grad(), mesh.active(self.dp):
             total, (loss_dict, metrics) = self.loss_fn(
-                self.cfg, module, to_device(batch, self.device),
-                draws=draws, generator=generator, **kw)
+                self.cfg, module, batch, draws=draws, generator=generator,
+                **kw)
         loss_dict = dict(loss_dict)
         loss_dict["total_loss"] = total
-        return loss_dict, metrics
+        return self._global(loss_dict, metrics)
+
+    def _global(self, loss_dict: dict, metrics: dict):
+        """The global batch's losses and metrics from this rank's shares
+        (one all-reduce of their values); as given without `dp`."""
+        if self.dp is None:
+            return loss_dict, metrics
+        merged = [*loss_dict.items(), *metrics.items()]
+        values = self.dp.all_reduce_(torch.stack(
+            [v.to(torch.float64) for _, v in merged]))
+        out = [(k, values[i].to(v.dtype)) for i, (k, v) in enumerate(merged)]
+        return dict(out[:len(loss_dict)]), dict(out[len(loss_dict):])
 
     @staticmethod
     def _check_grads(state: TrainState) -> None:

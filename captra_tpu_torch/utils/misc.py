@@ -3,6 +3,8 @@ nested-dict accumulation and averaging for loss logs, a wall-clock tick
 timer, and element i of a batched nested structure."""
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import numpy as np
@@ -77,3 +79,19 @@ def get_ith_from_batch(data, i: int, to_single: bool = True):
     if to_single and out.ndim == 0:
         return out.item()
     return out
+
+
+@contextlib.contextmanager
+def written_whole(path: str, mode: str = "w"):
+    """Open a file of this process beside `path` for writing, and rename it
+    onto `path` when the block ends without an error: a reader in another
+    process (the ranks of a data-parallel run read and cache the same
+    dataset) sees the whole file or none."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, mode) as f:
+            yield f
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)

@@ -157,7 +157,37 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 ROLLOUT_ROUNDS rounds (the script's 100 cut), evaluated at
                 rounds 0 and ROLLOUT_ROUNDS: launches, finite logs,
                 EVIDENCE.json, the checkpoints loaded back.
- 11. summary -- JSON lines of the paths and of the kernels, then, as the
+ 11. multi   -- data parallelism (`parallel/mesh.py`) on the train
+                phase's coord_laptop step (batch 12 x 4096, float32, a
+                fixed batch, draws from a seeded card generator), held to
+                the plain single-process steps: (a) one NCCL rank in this
+                process (BatchNorm's and the gradient's all-reduces
+                issued), losses within 1e-5 over MULTI_STEPS steps, step
+                1's largest gradient difference logged; (b) MULTI_RANKS
+                gloo ranks sharing the card (NCCL puts one rank on a
+                card; CUDA tensors), 6 rows each: step 1's losses within
+                1e-4, its flat gradient within 2e-2 of max |g| (float32
+                BN's backward at this size: two float32 computations of
+                the step part by ~7e-3) and, with BatchNorm's moments
+                per rank, beyond it; parameters
+                and BN statistics equal bit for bit on the ranks after
+                MULTI_STEPS, each rank's step launching exactly one
+                fps_cuda_wide ([6,4096]->512) and one fps_cuda_batched
+                ([6,512]->128); ms a step, samples/s over both ranks, peak
+                memory a rank.  Then, over the same ranks
+                (`cli.track.run_tracking`), the data phase's SAPIEN pair
+                (sharded, one a rank; within 1e-4 of each trajectory
+                tracked alone) and NOCS scene (B=1: rank 0 alone; within
+                1e-4 of the data phase's run).  Times at
+                W=2 on one card measure the protocol, not a speedup.
+ 12. vis     -- `cli.visualize.main --img_path --depth` on the data
+                phase's NOCS scene and its results: a decodable PNG a
+                tracked frame, every projected box vertex inside the image
+                in the box colour, seconds a frame; the 3D plots
+                (matplotlib) and the orbax format (tensorstore) run where
+                their package is installed and raise ImportError naming
+                it where it is not.
+ 13. summary -- JSON lines of the paths and of the kernels, then, as the
                 last line, {"ok": true, "device": {...}}.
 
 --profile DIR adds a torch.profiler window (`utils/profiling.trace`) over a
@@ -1972,12 +2002,13 @@ def track_from_disk(name: str, root: str, flags: list, exp: str,
     return run, cfg
 
 
-def phase_data(kernels: dict) -> dict:
+def phase_data(kernels: dict, tmp: str) -> dict:
     """The track CLI on the card on datasets on disk (DATA_RUNS), written
-    at 480x640 in a temporary directory from SEED, each run through
-    `track_from_disk`.  Then the host core's FPS of a reader's frame, and
-    `otf_frame_from_depth` on one frame of the NOCS scene against the same
-    call with the plain FPS."""
+    at 480x640 under `tmp` from SEED, each run through `track_from_disk`
+    (the datasets and the runs' experiments stay there for the multi and
+    vis phases: `out["exps"]`).  Then the host core's FPS of a reader's
+    frame, and `otf_frame_from_depth` on one frame of the NOCS scene
+    against the same call with the plain FPS."""
     from captra_tpu_torch.cli import track
     from captra_tpu_torch.data import native, preprocess
     from captra_tpu_torch.data.factory import make_dataset
@@ -1985,65 +2016,65 @@ def phase_data(kernels: dict) -> dict:
 
     dev = torch.device("cuda")
     H, W = DATA_IMAGE_HW
-    out = {"runs": {}}
-    with tempfile.TemporaryDirectory(prefix="captra_data_") as tmp:
-        root = os.path.join(tmp, "data")
-        rng = np.random.RandomState(SEED)
+    out = {"runs": {}, "exps": {}}
+    root = os.path.join(tmp, "data")
+    rng = np.random.RandomState(SEED)
+    t0 = time.perf_counter()
+    _, cfg = track.parse(["--basepath", root])
+    frames = {"sapien": cfg.obj.num_frames, "nocs": DATA_NOCS_FRAMES}
+    write_sapien(root, frames["sapien"], rng)
+    write_nocs(root, frames["nocs"], rng)
+    log(f"data: fixtures written in {time.perf_counter() - t0:.2f} s "
+        f"under a temporary directory: SAPIEN laptop "
+        f"{len(DATA_SAPIEN_INSTANCES)} tracks x {frames['sapien']} "
+        f"frames, NOCS bottle 1 scene x {frames['nocs']} frames, {H}x{W}")
+    for name, flags in DATA_RUNS:
+        nocs = "--obj_config" in flags
+        out["exps"][name] = (root, flags, os.path.join(tmp, name))
+        out["runs"][name], cfg = track_from_disk(
+            name, root, flags, os.path.join(tmp, name), kernels,
+            frames["nocs" if nocs else "sapien"],
+            1 if nocs else len(DATA_SAPIEN_INSTANCES), DATA_VIDEO,
+            "data")
+
+    # the host core's FPS of one reader frame: 5 x 4096 points -> 4096
+    cloud = np.random.RandomState(SEED).randn(
+        5 * cfg.num_points, 3).astype(np.float32)
+    host_ms = []
+    for _ in range(3):
         t0 = time.perf_counter()
-        _, cfg = track.parse(["--basepath", root])
-        frames = {"sapien": cfg.obj.num_frames, "nocs": DATA_NOCS_FRAMES}
-        write_sapien(root, frames["sapien"], rng)
-        write_nocs(root, frames["nocs"], rng)
-        log(f"data: fixtures written in {time.perf_counter() - t0:.2f} s "
-            f"under a temporary directory: SAPIEN laptop "
-            f"{len(DATA_SAPIEN_INSTANCES)} tracks x {frames['sapien']} "
-            f"frames, NOCS bottle 1 scene x {frames['nocs']} frames, {H}x{W}")
-        for name, flags in DATA_RUNS:
-            nocs = "--obj_config" in flags
-            out["runs"][name], cfg = track_from_disk(
-                name, root, flags, os.path.join(tmp, name), kernels,
-                frames["nocs" if nocs else "sapien"],
-                1 if nocs else len(DATA_SAPIEN_INSTANCES), DATA_VIDEO,
-                "data")
+        native.fps(cloud, cfg.num_points)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    out["host_fps_ms"] = float(np.median(host_ms))
+    log(f"data: host core FPS [{len(cloud)}]->{cfg.num_points} "
+        f"{out['host_fps_ms']:.1f} ms (median of 3; min "
+        f"{min(host_ms):.1f}, max {max(host_ms):.1f})")
 
-        # the host core's FPS of one reader frame: 5 x 4096 points -> 4096
-        cloud = np.random.RandomState(SEED).randn(
-            5 * cfg.num_points, 3).astype(np.float32)
-        host_ms = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            native.fps(cloud, cfg.num_points)
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-        out["host_fps_ms"] = float(np.median(host_ms))
-        log(f"data: host core FPS [{len(cloud)}]->{cfg.num_points} "
-            f"{out['host_fps_ms']:.1f} ms (median of 3; min "
-            f"{min(host_ms):.1f}, max {max(host_ms):.1f})")
+    out["sapien_perturb"] = check_sapien_perturb(root)
 
-        out["sapien_perturb"] = check_sapien_perturb(root)
-
-        # otf_frame_from_depth on frame 0 of the NOCS scene, kernels against
-        # the plain FPS
-        ds = make_dataset(cfg, "real_test")
-        item = ds[0]
-        pre, pose = item["meta"]["pre_fetched"], item["meta"]["pose"]
-        depth = torch.from_numpy(pre["depth"]).to(dev)
-        draw = torch.rand(depth.numel(), generator=torch.Generator()
-                          .manual_seed(SEED)).to(dev)
-        gt = Pose(*(torch.as_tensor(np.asarray(pose[f])).to(dev)
-                    for f in ("rotation", "translation", "scale")))
-        frame_args = (draw, depth, torch.from_numpy(pre["mask"]).to(dev),
-                      preprocess.NOCS_REAL_INTRINSICS, gt.translation[:, 0],
-                      cfg.data_radius * gt.scale, gt, cfg.num_points)
-        got = preprocess.otf_frame_from_depth(*frame_args)
-        with plain_fps_on_card():
-            want = preprocess.otf_frame_from_depth(*frame_args)
-        for k in ("points", "labels", "nocs"):
-            if not torch.equal(got[k], want[k]):
-                raise AssertionError(f"data otf_frame_from_depth: {k} with "
-                                     "the kernels differ from the plain FPS")
-        log(f"data otf_frame_from_depth: {H}x{W} frame "
-            f"-> {cfg.num_points} points ({int((got['labels'] == 0).sum())} "
-            "on the object), equal to the plain FPS's")
+    # otf_frame_from_depth on frame 0 of the NOCS scene, kernels against
+    # the plain FPS
+    ds = make_dataset(cfg, "real_test")
+    item = ds[0]
+    pre, pose = item["meta"]["pre_fetched"], item["meta"]["pose"]
+    depth = torch.from_numpy(pre["depth"]).to(dev)
+    draw = torch.rand(depth.numel(), generator=torch.Generator()
+                      .manual_seed(SEED)).to(dev)
+    gt = Pose(*(torch.as_tensor(np.asarray(pose[f])).to(dev)
+                for f in ("rotation", "translation", "scale")))
+    frame_args = (draw, depth, torch.from_numpy(pre["mask"]).to(dev),
+                  preprocess.NOCS_REAL_INTRINSICS, gt.translation[:, 0],
+                  cfg.data_radius * gt.scale, gt, cfg.num_points)
+    got = preprocess.otf_frame_from_depth(*frame_args)
+    with plain_fps_on_card():
+        want = preprocess.otf_frame_from_depth(*frame_args)
+    for k in ("points", "labels", "nocs"):
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"data otf_frame_from_depth: {k} with "
+                                 "the kernels differ from the plain FPS")
+    log(f"data otf_frame_from_depth: {H}x{W} frame "
+        f"-> {cfg.num_points} points ({int((got['labels'] == 0).sum())} "
+        "on the object), equal to the plain FPS's")
     return out
 
 
@@ -2831,6 +2862,578 @@ def phase_rollout(kernels: dict, profile: str | None = None) -> dict:
     return out
 
 
+# the multi phase: data parallelism (`parallel/mesh.py`) on the train
+# phase's CoordNet laptop step (batch 12 x 4096, float32): (a) NCCL with one
+# rank in this process, (b) two gloo ranks sharing the card (NCCL puts one
+# rank on a card), then the data phase's tracks sharded over those ranks
+MULTI_CONFIG = "config_coordnet.yml"
+MULTI_STEPS = 3             # steps held to the single-process steps
+MULTI_TIMED = 5             # timed steps a rank after them
+MULTI_W1_LOSS = 1e-5        # (a): losses, relative, every step
+MULTI_W2_LOSS = 1e-4        # (b): step 1's losses, relative
+# (b): step 1's flat gradient, of max |g|.  Float32 BatchNorm backward at
+# this size is ill-conditioned: on the CPU at batch 4 x 4096 the plain
+# single-process float32 gradient lies 6.1e-3 of max |g| from the float64
+# step, and any two float32 computations of the step (one rank through
+# the group, two ranks) part by 6-7e-3; on an H100 the two ranks' step
+# lies 2.6e-3 away.  Plain DDP's lies 1.84 away, and BatchNorm with
+# per-rank moments alone 0.88 (read in every run: it must miss the bar).
+# So the bar is 2e-2, and the semantics are held at 1e-9 in float64 by
+# tests/test_torch_parallel.py.
+MULTI_W2_GRAD = 2e-2
+MULTI_RANKS = 2
+# partial faults read on the W = 2 ranks (step 1 again from the seeded
+# state): "bn_per_rank", BatchNorm with each rank's own moments (must miss
+# MULTI_W2_GRAD); "ratio_per_rank", the masked-ratio losses over each
+# rank's own count, averaged over the ranks (plain DDP's), logged only:
+# every synthetic frame has 2048 points a part, so on this batch it is
+# the sound step (the CPU tests' skewed batches hold it).  Everything else
+# stays global.
+MULTI_FAULTS = ("bn_per_rank", "ratio_per_rank")
+MULTI_GATED_FAULT = "bn_per_rank"
+# (data run, sharded): the SAPIEN pair splits one a rank and is held to
+# each trajectory tracked alone at B=1 (random nets make the tracks
+# chaotic, and cuBLAS rounds B=1 and B=2 apart: on an H100 the sharded
+# run and the B=2 run parted by 3447.7 over 99 frames); the NOCS scene
+# (B=1) stays on rank 0 and is held to the data phase's run
+MULTI_TRACKS = (("sapien_laptop", True), ("nocs_bottle_otf", False))
+MULTI_LAUNCHES = {"fps_cuda_wide": 1, "fps_cuda_batched": 1}
+MULTI_WHERE = "a W=2 rank's train-step FPS inputs, ms a step"
+MULTI_TRACK_WHERE = "rank 0's FPS inputs of the data phase's tracks at W=2, ms a frame"
+
+
+def multi_config():
+    """The train phase's coord_laptop config with SGD's trace for Adam:
+    Adam's first update is +-lr on every gradient entry, float32 noise
+    included, so two float32 computations of a step part by ~1e-3 of a
+    loss from step 2 on (measured on an H100); SGD keeps them
+    together, and the steps stay comparable at 1e-5."""
+    from captra_tpu_torch.config import get_config
+    cfg = get_config(MULTI_CONFIG, {})
+    return cfg.replace(optim=dataclasses.replace(cfg.optim,
+                                                 optimizer="sgd"))
+
+
+def _relative_loss_diff(got: dict, want: dict) -> float:
+    return max(abs(float(got[k]) - float(v)) / max(1.0, abs(float(v)))
+               for k, v in want.items())
+
+
+@contextlib.contextmanager
+def multi_fault(name: str):
+    """One part of the data-parallel semantics made per rank (a name of
+    MULTI_FAULTS), for a reading of what the gradient bar would miss."""
+    from captra_tpu_torch.models import blocks, losses
+    from captra_tpu_torch.parallel import mesh
+    if name == "bn_per_rank":
+        def moments(flat, dp):
+            mean = flat.mean(dim=0)
+            return mean, torch.square(flat - mean).mean(dim=0)
+        module, attr, fn = blocks, "_global_moments", moments
+    elif name == "ratio_per_rank":
+        def ratio(num, count):
+            return num / (torch.clamp(count, min=1.0)
+                          * mesh.current().world)
+        module, attr, fn = losses, "masked_ratio", ratio
+    else:
+        raise ValueError(f"unknown fault {name}")
+    saved = getattr(module, attr)
+    setattr(module, attr, fn)
+    try:
+        yield
+    finally:
+        setattr(module, attr, saved)
+
+
+@contextlib.contextmanager
+def timed_all_reduces(dev: torch.device, spent: list):
+    """Every `DataParallel.all_reduce_` (the BN moments' both ways, the
+    loss counts, the gradient, the global losses) bracketed by card syncs,
+    its host seconds (the peer's wait included) added to spent[0]."""
+    from captra_tpu_torch.parallel import mesh
+    plain = mesh.DataParallel.all_reduce_
+
+    def all_reduce_(self, t):
+        sync(dev)
+        t0 = time.perf_counter()
+        try:
+            return plain(self, t)
+        finally:
+            sync(dev)
+            spent[0] += time.perf_counter() - t0
+    mesh.DataParallel.all_reduce_ = all_reduce_
+    try:
+        yield
+    finally:
+        mesh.DataParallel.all_reduce_ = plain
+
+
+def multi_rank(rank: int, world: int, device: str, batch: dict,
+               draws: list, tracks: list) -> dict:
+    """One rank of the multi phase's W = 2 run (spawned by `mesh.launch`):
+    the seeded CoordNet replicated, MULTI_STEPS steps on this rank's shard
+    of the global batch with its shard of the global draws (the first
+    step's losses and flat gradient, the parameters and BN statistics
+    after the last), step 1 again under each of MULTI_FAULTS (rank 0's
+    flat gradient), MULTI_TIMED timed steps (FPS launches, ms a step,
+    peak memory), MULTI_TIMED steps with their all-reduces timed (ms in
+    them, ms a step), then each of `tracks` (argv, coord and rot
+    variables) through `cli.track.run_tracking` over the same ranks."""
+    from captra_tpu_torch.cli import track
+    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.parallel import mesh
+    from captra_tpu_torch.training.trainer import Trainer
+    dev = torch.device(device)
+    dp = mesh.data_parallel_mesh()
+    cfg = multi_config()
+    trainer = Trainer(cfg, steps_per_epoch=50, device=dev, dp=dp)
+    state = mesh.replicate(trainer.init_state(
+        generator=torch.Generator().manual_seed(SEED)), dp)
+    local = mesh.shard_batch(batch, rank, world)
+    draws = [mesh.tree_map(lambda x: x.to(dev), mesh.shard_batch(
+        dr, rank, world)) for dr in draws]
+    out = {"losses": []}
+    calls = {}
+    with recording_fps(calls) if rank == 0 else contextlib.nullcontext():
+        for s, dr in enumerate(draws):
+            state, losses, _ = trainer.train_step(state, local, draws=dr)
+            out["losses"].append({k: float(v) for k, v in losses.items()})
+            if s == 0 and rank == 0:
+                out["grads"] = state.grads.cpu().numpy()
+    out["fps_inputs"] = _cpu_calls(calls)
+    out["params"] = state.params.cpu().numpy()
+    out["stats"] = {k: v.cpu().numpy() for k, v in
+                    state.module.state_dict().items()
+                    if k.endswith(("running_mean", "running_var"))}
+    out["faults"] = {}
+    for name in MULTI_FAULTS:
+        fstate = mesh.replicate(trainer.init_state(
+            generator=torch.Generator().manual_seed(SEED)), dp)
+        with multi_fault(name):
+            fstate, _, _ = trainer.train_step(fstate, local, draws=draws[0])
+        if rank == 0:
+            out["faults"][name] = fstate.grads.cpu().numpy()
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fps.reset_launch_counts()
+    steps_ms = []
+    for s in range(MULTI_TIMED):
+        dp.barrier()
+        t0 = time.perf_counter()
+        trainer.train_step(state, local, draws=draws[s % len(draws)])
+        sync(dev)
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+    out["launches"] = {k: v for k, v in fps.launch_counts.items() if v}
+    out["steps_ms"] = steps_ms
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    spent, out["reduce_ms"], out["reduce_steps_ms"] = [0.0], [], []
+    with timed_all_reduces(dev, spent):
+        for s in range(MULTI_TIMED):
+            dp.barrier()
+            spent[0] = 0.0
+            t0 = time.perf_counter()
+            trainer.train_step(state, local, draws=draws[s % len(draws)])
+            sync(dev)
+            out["reduce_steps_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["reduce_ms"].append(spent[0] * 1e3)
+    out["tracks"] = {}
+    for name, argv, cv, rv in tracks:
+        args, tcfg = track.parse(argv)
+        fps.reset_launch_counts()
+        text, calls = io.StringIO(), {}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text), (
+                recording_fps(calls) if rank == 0
+                else contextlib.nullcontext()):
+            track.run_tracking(args, tcfg, cv, rv, dev, dp)
+        out["tracks"][name] = {
+            "launches": {k: v for k, v in fps.launch_counts.items() if v},
+            "seconds": time.perf_counter() - t0, "text": text.getvalue(),
+            "fps_inputs": _cpu_calls(calls)}
+    return out
+
+
+def _cpu_calls(calls: dict) -> dict:
+    """Recorded FPS inputs {(N, npoint): [xyz]} grouped by batch too, on
+    the host: {(B, N, npoint): [xyz]}."""
+    out = {}
+    for (n, npoint), clouds in calls.items():
+        for xyz in clouds:
+            out.setdefault((xyz.shape[0], n, npoint), []).append(xyz.cpu())
+    return out
+
+
+def _check_rank_inputs(kernels: dict, by_shape: dict, run: str,
+                       frames: int, where: str, unit: str) -> None:
+    """Each kernel `route` picks, held against the plain FPS and timed on
+    a rank's recorded FPS inputs (`check_video`)."""
+    from captra_tpu_torch.ops import fps
+    for (b, n, npoint), clouds in sorted(by_shape.items()):
+        check_video(fps, kernels, (fps.route(b, n),),
+                    [xyz.cuda() for xyz in clouds], npoint, run, frames,
+                    where, path="multi", unit=unit)
+
+
+def _compare_results(label: str, got_dir: str, want_dir: str,
+                     tol: float | None = POSE_TOL) -> float:
+    """The result pickles of a run against another's: the same files,
+    finite poses and corners within `tol` (None: not gated)."""
+    import pickle
+    names = sorted(os.listdir(want_dir))
+    if sorted(os.listdir(got_dir)) != names or not names:
+        raise AssertionError(f"{label}: result files {os.listdir(got_dir)} "
+                             f"against {names}")
+    worst = 0.0
+    for f in names:
+        with open(os.path.join(got_dir, f), "rb") as fh:
+            got = pickle.load(fh)
+        with open(os.path.join(want_dir, f), "rb") as fh:
+            want = pickle.load(fh)
+        pairs = [(got["pred"]["poses"][k], v)
+                 for k, v in want["pred"]["poses"].items()]
+        pairs.append((got["pred"]["corners"], want["pred"]["corners"]))
+        for a, b in pairs:
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            if not np.isfinite(a).all():
+                raise AssertionError(f"{label}: non-finite results in {f}")
+            worst = max(worst, float(np.abs(a - b).max()))
+    if tol is not None and worst > tol:
+        raise AssertionError(f"{label}: results differ by {worst}")
+    return worst
+
+
+def _sharded_twin_diff(label: str, argv: list, cv, rv, saved_dir: str,
+                       dev: torch.device) -> float:
+    """Each trajectory of a point-cloud track batch tracked alone (B=1,
+    the work of its rank) by `track_trajectory` on the same nets, with
+    its row of the batch's init draws (the CLI's generator of seed 0);
+    the saved results of the sharded run held to it within POSE_TOL.
+    Returns the largest difference."""
+    import pickle
+    from captra_tpu_torch.cli import track
+    from captra_tpu_torch.tracking.tracker import (
+        init_pose_from_gt, track_trajectory,
+    )
+    args, cfg = track.parse(argv)
+    step = track.build_step(cfg, cv, rv, device=dev)
+    (names, batch), = list(track.dataset_sequences(cfg, args.mode_name))
+    gt = batch["pose"].map(lambda x: torch.as_tensor(np.asarray(x)))
+    init = init_pose_from_gt(
+        gt[0], cfg, generator=torch.Generator().manual_seed(0),
+        crop_translation=track._first(batch, "crop_translation"),
+        crop_scale=track._first(batch, "crop_scale"))
+    frames = {"points": torch.as_tensor(np.asarray(batch["points"]))}
+    if cfg.track.gt_label:
+        frames["labels"] = torch.as_tensor(np.asarray(batch["labels"]))
+    worst = 0.0
+    for b, name in enumerate(names):
+        _, aux = track_trajectory(
+            step, init[b:b + 1],
+            {k: v[:, b:b + 1].to(dev) for k, v in frames.items()},
+            device=dev)
+        with open(os.path.join(saved_dir, name.replace("/", "_") + ".pkl"),
+                  "rb") as fh:
+            saved = pickle.load(fh)
+        for f in ("rotation", "translation", "scale"):
+            got = np.asarray(saved["pred"]["poses"][f])
+            if not np.isfinite(got).all():
+                raise AssertionError(f"{label}: non-finite {f}")
+            worst = max(worst, float(np.abs(
+                got - getattr(aux.pose, f)[:, 0].cpu().numpy()).max()))
+    if worst > POSE_TOL:
+        raise AssertionError(f"{label}: the sharded results differ from "
+                             f"each trajectory tracked alone by {worst}")
+    return worst
+
+
+def phase_multi(data: dict, tmp: str, kernels: dict) -> dict:
+    """Data parallelism on the card.  The single-process reference: the
+    seeded CoordNet laptop (`multi_config`: SGD, batch 12 x 4096) for
+    MULTI_STEPS steps on a fixed batch with draws from a seeded card
+    generator.  (a) the same steps through `parallel.mesh` with one NCCL
+    rank in this process (BatchNorm's and the gradient's all-reduces
+    issued): losses within MULTI_W1_LOSS; step 1's largest gradient
+    difference logged.  (b) MULTI_RANKS gloo ranks on this card (CUDA
+    tensors), each on its 6 rows: step 1's losses within MULTI_W2_LOSS
+    and its flat gradient within MULTI_W2_GRAD of max |g|, and step 1
+    under MULTI_GATED_FAULT beyond it (each of MULTI_FAULTS logged);
+    parameters and BN statistics equal bit for bit on the ranks after
+    MULTI_STEPS; the ms a step spends in all-reduces logged; a
+    step's FPS launches on each rank exactly MULTI_LAUNCHES (sa1 [6,4096]
+    -> fps_cuda_wide, sa2 [6,512] -> fps_cuda_batched); ms a step,
+    samples/s over both ranks, peak memory.  Then the data phase's SAPIEN
+    pair (B=2: one a rank; held to each trajectory tracked alone) and NOCS
+    scene (B=1: rank 0 alone; held to the data phase's run) tracked over
+    the same ranks, within POSE_TOL.
+    Rank 0's FPS inputs (its steps', its tracks') come back, and each
+    kernel is held against the plain FPS and timed on them (into
+    `kernels`)."""
+    import torch.distributed as dist
+    from captra_tpu_torch.cli import track
+    from captra_tpu_torch.data.synthetic import make_frame_batch
+    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.parallel import mesh
+    from captra_tpu_torch.training.trainer import Trainer, to_device
+
+    dev = torch.device("cuda")
+    cfg = multi_config()
+    B = cfg.batch_size
+    batch = make_frame_batch(SEED, cfg.obj, batch=B,
+                             num_points=cfg.num_points)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    draws = [Trainer(cfg, device=dev).draw(to_device(batch, dev), gen)
+             for _ in range(MULTI_STEPS)]
+
+    def steps(dp=None):
+        trainer = Trainer(cfg, steps_per_epoch=50, device=dev, dp=dp)
+        state = trainer.init_state(
+            generator=torch.Generator().manual_seed(SEED))
+        losses, grads = [], None
+        for dr in draws:
+            state, loss, _ = trainer.train_step(state, batch, draws=dr)
+            losses.append({k: float(v) for k, v in loss.items()})
+            if grads is None:
+                grads = state.grads.cpu().numpy()
+        return losses, grads
+
+    ref_losses, ref_grads = steps()
+    out = {"B": B, "steps": MULTI_STEPS}
+
+    # (a) one NCCL rank in this process
+    fps.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="captra_nccl_") as store:
+        mesh.init_data_parallel(0, 1, "file://" + os.path.join(store, "s"),
+                                "nccl")
+        try:
+            w1_losses, w1_grads = steps(mesh.data_parallel_mesh())
+        finally:
+            dist.destroy_process_group()
+    out["w1_launches"] = {k: v for k, v in fps.launch_counts.items() if v}
+    w1_diff = max(_relative_loss_diff(a, b)
+                  for a, b in zip(w1_losses, ref_losses))
+    w1_grad = float(np.abs(w1_grads - ref_grads).max())
+    out.update(w1_loss_diff=w1_diff, w1_step1_grad_diff=w1_grad,
+               w1_step1_grad_diff_rel=w1_grad / float(np.abs(
+                   ref_grads).max()))
+    log(f"multi (a) NCCL W=1: {MULTI_STEPS} steps, losses within "
+        f"{w1_diff:.3e} of the single-process steps (relative; bar "
+        f"{MULTI_W1_LOSS}), step 1's largest gradient difference "
+        f"{w1_grad:.3e} ({out['w1_step1_grad_diff_rel']:.3e} of max |g|)")
+    if w1_diff > MULTI_W1_LOSS:
+        raise AssertionError(f"multi (a): losses differ by {w1_diff}")
+
+    # (b) two gloo ranks on this card, then the data phase's tracks
+    jobs = []
+    for name, _ in MULTI_TRACKS:
+        root, flags, exp = data["exps"][name]
+        common = ["--basepath", root,
+                  *[f.replace("{root}", root) for f in flags]]
+        args, tcfg = track.parse(["--experiment_dir", os.path.join(
+            exp, "rot"), "--coord_exp/dir", os.path.join(exp, "coord"),
+            *common])
+        cv, rv = track.load_variables(tcfg, args)
+        argv = ["--save", "--experiment_dir",
+                os.path.join(tmp, f"multi_{name}"), *common]
+        jobs.append((name, argv, cv, rv))
+    cpu_draws = [mesh.tree_map(torch.Tensor.cpu, dr) for dr in draws]
+    t0 = time.perf_counter()
+    ranks = mesh.launch(multi_rank, MULTI_RANKS, dev,
+                        args=(batch, cpu_draws, jobs), backend="gloo",
+                        cards=(0,) * MULTI_RANKS, timeout=900)
+    out["w2_launch_s"] = time.perf_counter() - t0
+    w2_diff = _relative_loss_diff(ranks[0]["losses"][0], ref_losses[0])
+    w2_grad = float(np.abs(ranks[0]["grads"] - ref_grads).max()
+                    / np.abs(ref_grads).max())
+    equal = all(np.array_equal(r["params"], ranks[0]["params"])
+                and all(np.array_equal(r["stats"][k], v)
+                        for k, v in ranks[0]["stats"].items())
+                for r in ranks[1:])
+    faults = {name: float(np.abs(g - ref_grads).max()
+                          / np.abs(ref_grads).max())
+              for name, g in ranks[0]["faults"].items()}
+    rank_ms = [float(np.median(r["steps_ms"])) for r in ranks]
+    ms = max(rank_ms)
+    reduce_ms = [float(np.median(r["reduce_ms"])) for r in ranks]
+    reduce_step_ms = [float(np.median(r["reduce_steps_ms"])) for r in ranks]
+    out.update(
+        w2_step1_loss_diff=w2_diff, w2_step1_grad_diff_rel=w2_grad,
+        w2_ranks_equal=equal, w2_ms_per_step_by_rank=rank_ms,
+        w2_ms_per_step=ms, w2_samples_per_s=B * 1e3 / ms,
+        w2_peak_bytes_by_rank=[r["peak_bytes"] for r in ranks],
+        w2_launches_per_step_by_rank=[
+            {k: v / MULTI_TIMED for k, v in r["launches"].items()}
+            for r in ranks],
+        w2_losses=[r["losses"] for r in ranks],
+        w2_fault_grad_diff_rel=faults,
+        w2_reduce_ms_by_rank=reduce_ms,
+        w2_reduce_step_ms_by_rank=reduce_step_ms)
+    log(f"multi (b) gloo W={MULTI_RANKS} on one card: step 1's losses "
+        f"within {w2_diff:.3e} (relative; bar {MULTI_W2_LOSS}), its flat "
+        f"gradient within {w2_grad:.3e} of max |g| (bar {MULTI_W2_GRAD}); "
+        f"after {MULTI_STEPS} steps parameters and BN statistics "
+        f"{'equal' if equal else 'DIFFER'} on the ranks; {ms:.2f} ms a "
+        f"step (median of {MULTI_TIMED}, by rank {rank_ms}), "
+        f"{out['w2_samples_per_s']:.1f} samples/s over both ranks, peak "
+        f"{[round(r['peak_bytes'] / 2**30, 3) for r in ranks]} GiB, FPS "
+        f"launches a step by rank {out['w2_launches_per_step_by_rank']}; "
+        f"spawn to exit {out['w2_launch_s']:.1f} s")
+    log(f"multi (b) partial faults, step 1's flat gradient of max |g| "
+        f"(bar {MULTI_W2_GRAD}; the sound step {w2_grad:.3e}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in faults.items()))
+    log(f"multi (b) all-reduces timed (each between card syncs, the "
+        f"peer's wait included): {reduce_ms} ms of a step's "
+        f"{reduce_step_ms} ms by rank (median of {MULTI_TIMED})")
+    if w2_diff > MULTI_W2_LOSS or w2_grad > MULTI_W2_GRAD or not equal:
+        raise AssertionError("multi (b): the ranks' step is not the "
+                             "single-process step")
+    if faults[MULTI_GATED_FAULT] <= MULTI_W2_GRAD:
+        raise AssertionError(f"multi (b): the fault {MULTI_GATED_FAULT} "
+                             f"passes the gradient bar "
+                             f"({faults[MULTI_GATED_FAULT]:.3e})")
+    _check_rank_inputs(kernels, ranks[0]["fps_inputs"], "w2_rank0",
+                       MULTI_STEPS, MULTI_WHERE, "step")
+    for r in out["w2_launches_per_step_by_rank"]:
+        if r != MULTI_LAUNCHES:
+            raise AssertionError(f"multi (b): FPS launches a step {r}, "
+                                 f"expected {MULTI_LAUNCHES}")
+    out["tracks"] = {}
+    for (name, sharded), (_, argv, cv, rv) in zip(MULTI_TRACKS, jobs):
+        exp = data["exps"][name][2]
+        saved = os.path.join(tmp, f"multi_{name}", "results", "data")
+        want = os.path.join(exp, "rot", "results", "data")
+        if sharded:
+            diff = _sharded_twin_diff(f"multi track {name}", argv, cv, rv,
+                                      saved, dev)
+            one_rank = _compare_results(f"multi track {name}", saved, want,
+                                        tol=None)
+            log(f"multi track {name}: the sharded results against the data "
+                f"phase's B={len(os.listdir(want))} run (not gated: random "
+                f"nets, another batch shape) {one_rank:.3e}")
+        else:
+            diff = _compare_results(f"multi track {name}", saved, want)
+        run = ranks[0]["tracks"][name]
+        for line in run["text"].strip().splitlines():
+            log(f"  | {line}")
+        steps = (data["runs"][name]["frames"] - 1 + track.WARMUP_FRAMES
+                 - 1)
+        _check_rank_inputs(kernels, run["fps_inputs"], f"track_{name}",
+                           steps, MULTI_TRACK_WHERE, "frame")
+        out["tracks"][name] = dict(
+            max_diff=diff, seconds=run["seconds"],
+            launches_by_rank=[r["tracks"][name]["launches"] for r in ranks])
+        log(f"multi track {name} over {MULTI_RANKS} ranks: results within "
+            f"{diff:.3e} of "
+            f"{'each trajectory alone' if sharded else 'the data phase'}; "
+            f"{run['seconds']:.2f} s; FPS launches by rank "
+            f"{out['tracks'][name]['launches_by_rank']}")
+    return out
+
+
+# the vis phase: the scene overlay of the data phase's NOCS results (depth
+# frames: the fixture writes no colour), and the optional packages
+VIS_RUN = "nocs_bottle_otf"
+VIS_COLOR = (255, 80, 0)
+
+
+def phase_vis(data: dict, tmp: str) -> dict:
+    """`cli.visualize.main --img_path --depth` on the data phase's NOCS
+    scene and its saved results: a decodable PNG a tracked frame, and
+    every projected box vertex inside the image carries the box colour.
+    Seconds a frame.  Then matplotlib's 3D plots (`visualize_results_dir`)
+    and the orbax format (tensorstore): where the package is installed,
+    they run; where it is not, they raise ImportError naming it."""
+    import importlib.util
+    import pickle
+    from captra_tpu_torch.cli import visualize as vis_cli
+    from captra_tpu_torch.data.image_io import read_png
+    from captra_tpu_torch.data.preprocess import NOCS_REAL_INTRINSICS
+    from captra_tpu_torch.eval import visualize
+
+    root, _, exp = data["exps"][VIS_RUN]
+    results = os.path.join(exp, "rot", "results")
+    out_dir = os.path.join(tmp, "vis")
+    img_path = os.path.join(root, "nocs_full", "real_test")
+    text, _, seconds = _printed(vis_cli.main, [
+        "--results_dir", results, "--img_path", img_path, "--depth",
+        "--output_path", out_dir])
+    for line in text.strip().splitlines():
+        log(f"  | {line}")
+    (name,) = os.listdir(os.path.join(results, "data"))
+    with open(os.path.join(results, "data", name), "rb") as fh:
+        saved = pickle.load(fh)
+    frames = [int(n[0]) for n in saved["frame_nums"]]
+    written = sorted(os.listdir(os.path.join(out_dir, "scene_1")))
+    if written != sorted(f"{f}.png" for f in frames):
+        raise AssertionError(f"vis: wrote {written} for frames {frames}")
+    inside = 0
+    for i, f in enumerate(frames):
+        img = read_png(os.path.join(out_dir, "scene_1", f"{f}.png"))
+        rgb = img[..., ::-1]
+        H, W = rgb.shape[:2]
+        pose = visualize._pose(saved["pred"]["poses"], i)
+        corners = saved["pred"]["corners"][i]
+        if not np.isfinite(np.asarray(corners, np.float32)).all():
+            corners = saved["gt"]["corners"]
+        for box in visualize._posed_boxes(pose, corners):
+            rc = visualize.project_box_2d(
+                box, np.asarray(NOCS_REAL_INTRINSICS), H).astype(np.int32)
+            for r, c in rc:
+                if 0 <= r < H and 0 <= c < W:
+                    inside += 1
+                    if tuple(rgb[r, c]) != VIS_COLOR:
+                        raise AssertionError(
+                            f"vis: frame {f}'s vertex ({r}, {c}) is "
+                            f"{tuple(rgb[r, c])}, not the box colour")
+    if not inside:
+        raise AssertionError("vis: no projected vertex fell in the image")
+    out = {"frames": len(frames), "seconds": seconds,
+           "s_per_frame": seconds / len(frames), "vertices_checked": inside}
+    log(f"vis: {len(frames)} overlay PNGs of {VIS_RUN}, {inside} projected "
+        f"vertices inside the images all in the box colour; "
+        f"{out['s_per_frame']:.3f} s a frame (the host's)")
+
+    for package, call in (
+            ("matplotlib", lambda: visualize.visualize_results_dir(
+                results, os.path.join(tmp, "vis3d"), max_frames=2)),
+            ("tensorstore", lambda: _orbax_round_trip(tmp))):
+        present = importlib.util.find_spec(package) is not None
+        if present:
+            result = call()
+            log(f"vis: {package} is installed: {result}")
+        else:
+            try:
+                call()
+            except ImportError as e:
+                if package not in str(e):
+                    raise AssertionError(f"vis: the ImportError does not "
+                                         f"name {package}: {e}") from e
+                result = f"ImportError: {e}"
+            else:
+                raise AssertionError(f"vis: without {package} the call did "
+                                     "not raise")
+            log(f"vis: {package} is not installed; the call raised {result}")
+        out[package] = {"installed": present, "result": str(result)}
+    return out
+
+
+def _orbax_round_trip(tmp: str) -> str:
+    """A fresh CoordNet laptop state saved as orbax and restored."""
+    from captra_tpu_torch.config import get_config
+    from captra_tpu_torch.training import checkpoint
+    from captra_tpu_torch.training.trainer import Trainer
+    cfg = get_config(MULTI_CONFIG, {})
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(generator=torch.Generator().manual_seed(SEED))
+    path = checkpoint.save_train_state(os.path.join(tmp, "orbax"), 0, state,
+                                       format="orbax",
+                                       grad_clip=cfg.optim.grad_clip)
+    back = checkpoint.restore_state(checkpoint.load_checkpoint(path),
+                                    trainer.init_state())
+    if not torch.equal(back.params, state.params):
+        raise AssertionError("vis: the orbax round trip changed the net")
+    return f"orbax round trip of {path} equal"
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -2864,14 +3467,19 @@ def main() -> int:
     lap("init_search")
     cli = phase_cli(kernels=kernels)
     lap("cli")
-    data = phase_data(kernels=kernels)
-    lap("data")
-    pre = phase_preproc(kernels=kernels)
-    lap("preproc")
-    train = phase_train(kernels=kernels)
-    lap("train")
-    roll = phase_rollout(kernels=kernels, profile=args.profile)
-    lap("rollout")
+    with tempfile.TemporaryDirectory(prefix="captra_data_") as data_tmp:
+        data = phase_data(kernels=kernels, tmp=data_tmp)
+        lap("data")
+        pre = phase_preproc(kernels=kernels)
+        lap("preproc")
+        train = phase_train(kernels=kernels)
+        lap("train")
+        roll = phase_rollout(kernels=kernels, profile=args.profile)
+        lap("rollout")
+        multi = phase_multi(data, data_tmp, kernels)
+        lap("multi")
+        vis = phase_vis(data, data_tmp)
+        lap("vis")
 
     line = []
     for name, cases in kernels.items():
@@ -2895,7 +3503,14 @@ def main() -> int:
                    **{f"train_cli_{r}": v["launches"].get(name, 0)
                       for r, v in train["cli"].items()},
                    "rollout_round1": roll["launches"].get(name, 0),
-                   "rollout_main": roll["main_launches"].get(name, 0)}
+                   "rollout_main": roll["main_launches"].get(name, 0),
+                   "multi_w1": multi["w1_launches"].get(name, 0),
+                   "multi_w2": sum(
+                       r.get(name, 0) * MULTI_TIMED
+                       for r in multi["w2_launches_per_step_by_rank"]),
+                   **{f"multi_track_{r}": sum(
+                       lr.get(name, 0) for lr in v["launches_by_rank"])
+                      for r, v in multi["tracks"].items()}}
         line.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
@@ -2916,6 +3531,8 @@ def main() -> int:
     log(json.dumps({"preproc": pre}))
     log(json.dumps({"train": train}))
     log(json.dumps({"rollout": roll}))
+    log(json.dumps({"multi": multi}))
+    log(json.dumps({"vis": vis}))
     log(json.dumps({"seconds": seconds}))
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -216,13 +216,15 @@ def test_latest_and_pinned_epochs(tmp_path):
 
 
 def test_orbax_checkpoint_raises(tmp_path):
-    """An orbax checkpoint is a directory under the same naming."""
+    """An orbax checkpoint is a directory under the same naming; one whose
+    metadata holds no tree raises (reading real ones:
+    tests/test_torch_orbax.py)."""
     d = tmp_path / "ckpt"
     (d / "model_0002").mkdir(parents=True)
     (d / "model_0002" / "_METADATA").write_text("{}")
     path = tckpt.latest_checkpoint(str(d))
     assert path.endswith("model_0002")
-    with pytest.raises(NotImplementedError, match="ckpt_format=orbax"):
+    with pytest.raises(ValueError, match="orbax metadata"):
         tckpt.load_checkpoint(path)
 
 

@@ -470,14 +470,25 @@ def test_otf_branch_tracks_the_depth_video(case, tmp_path):
     (["--synthetic_data", "--num_devices", "2"], "--num_devices"),
 ])
 def test_track_main_raises_for_what_is_not_ported(argv, field):
-    with pytest.raises(NotImplementedError, match=field.lstrip("-")):
+    """Every option is ported: `--num_devices 2` gets as far as the
+    checkpoints (missing here), which the first process reads before it
+    starts the ranks; on CUDA more ranks than cards raise."""
+    with pytest.raises(FileNotFoundError, match="checkpoints not found"):
         ttrack.main(argv, device="cpu")
+    from captra_tpu_torch.cli.train import num_ranks
+    cards = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"{cards + 1} ranks .* {cards} "
+                                         "cards"):
+        num_ranks(cards + 1, None, torch.device("cuda"))
 
 
 def test_orbax_experiment_raises(runs, tmp_path):
+    """An experiment whose checkpoint is a directory without orbax
+    metadata raises naming what is missing (orbax experiments that are
+    whole: tests/test_torch_orbax.py)."""
     exp = tmp_path / "orbax_exp"
     (exp / "ckpt" / "model_0000").mkdir(parents=True)
     argv = _argv(runs["config_dir"], str(exp),
                  extra=["--coord_exp/dir", runs["coord"]])
-    with pytest.raises(NotImplementedError, match="ckpt_format=orbax"):
+    with pytest.raises(FileNotFoundError, match="_METADATA"):
         ttrack.main(argv, device="cpu")

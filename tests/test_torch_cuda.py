@@ -645,3 +645,51 @@ def test_preprocessed_tree_tracks_on_the_card_as_the_plain_fps(card,
         assert np.isfinite(got["pred"]["poses"][k]).all(), k
         np.testing.assert_allclose(got["pred"]["poses"][k], v, atol=1e-4,
                                    err_msg=k)
+
+
+def test_nccl_one_rank_step_is_the_plain_step(card, tmp_path):
+    """Data parallelism through `parallel.mesh` with one NCCL rank in this
+    process (BatchNorm's and the gradient's all-reduces issued) against
+    the plain single-process steps of the full-width CoordNet laptop:
+    losses within 1e-5 relative over 3 steps."""
+    import torch.distributed as dist
+    from captra_tpu_torch.parallel import mesh
+    from torch_port_helpers import dp_card_steps
+    want = dp_card_steps(card, 3)
+    mesh.init_data_parallel(0, 1, f"file://{tmp_path}/store", "nccl")
+    try:
+        dp = mesh.data_parallel_mesh()
+        assert dp.world == 1
+        got = dp_card_steps(card, 3, dp)
+    finally:
+        dist.destroy_process_group()
+    for k, v in want["losses"].items():
+        assert abs(got["losses"][k] - v) <= 1e-5 * max(1.0, abs(v)), k
+    assert got["launches"] == want["launches"]
+
+
+def test_two_gloo_ranks_on_one_card_step_as_the_global_batch(card):
+    """Two gloo ranks sharing the card (CUDA tensors), each on 6 of the 12
+    rows: step 1's losses within 1e-4 relative of the single-process step
+    and its flat gradient within 2e-2 of max |g| (float32 BN's backward
+    at this size: the single-process float32 gradient itself lies ~6e-3
+    of max |g| from the float64 step; tests/test_torch_parallel.py holds
+    the semantics at 1e-9 in float64); parameters and BN statistics equal
+    bit for bit on both ranks after 3 steps; each rank's step launches
+    fps_cuda_wide ([6,4096]->512) and fps_cuda_batched ([6,512]->128)
+    once."""
+    from captra_tpu_torch.parallel import mesh
+    from torch_port_helpers import dp_card_rank, dp_card_steps
+    want = dp_card_steps(card, 1)
+    ranks = mesh.launch(dp_card_rank, 2, card, args=(3,), backend="gloo",
+                        cards=(0, 0), timeout=600)
+    for k, v in want["losses"].items():
+        assert abs(ranks[0]["losses"][k] - v) <= 1e-4 * max(1.0, abs(v)), k
+    g = want["grads"]
+    assert np.abs(ranks[0]["grads"] - g).max() <= 2e-2 * np.abs(g).max()
+    np.testing.assert_array_equal(ranks[1]["params"], ranks[0]["params"])
+    for k, v in ranks[0]["stats"].items():
+        np.testing.assert_array_equal(ranks[1]["stats"][k], v, err_msg=k)
+    for r in ranks:
+        assert r["launches"] == [{"fps_cuda_wide": 1,
+                                  "fps_cuda_batched": 1}] * 3

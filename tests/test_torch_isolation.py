@@ -22,6 +22,8 @@ from captra_tpu_torch.config.presets import NOCS_BOTTLE_OVERRIDES, nocs_bottle
 from captra_tpu_torch.eval.evaluator import evaluate_results_dir
 from captra_tpu_torch.models.coordnet import CoordNet
 from captra_tpu_torch.models.rotnet import RotNet
+from captra_tpu_torch.parallel import mesh
+from captra_tpu_torch.parallel.dryrun import dryrun_multichip
 from captra_tpu_torch.pose.part_dof import Pose
 from captra_tpu_torch.tracking.tracker import (
     init_pose_from_cloud, make_track_step, search_init_orientation,
@@ -84,16 +86,22 @@ def test_sources_import_no_jax():
     "captra_tpu_torch.training.trainer", "captra_tpu_torch.models.losses",
     "captra_tpu_torch.training.rollout",
     "captra_tpu_torch.cli.rollout_finetune", "captra_tpu_torch.data.blur",
-    "captra_tpu_torch.data.sapien", "captra_tpu_torch.training.convert"])
+    "captra_tpu_torch.data.sapien", "captra_tpu_torch.training.convert",
+    "captra_tpu_torch.parallel.mesh", "captra_tpu_torch.parallel.dryrun",
+    "captra_tpu_torch.training.orbax_io", "captra_tpu_torch.eval.visualize",
+    "captra_tpu_torch.cli.visualize"])
 def test_training_entry_points_import_with_jax_blocked(module):
-    """The training modules import in a process where importing jax,
-    flax, optax, orbax, captra_tpu or cv2 fails."""
+    """The training, data-parallel, checkpoint and visualiser modules
+    import in a process where importing jax, flax, optax, orbax,
+    captra_tpu or cv2 fails, and tensorstore and matplotlib too (the
+    card's machine has neither: they are imported where they are used)."""
     code = (
         "import sys, importlib.abc\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'flax', 'optax', 'orbax',\n"
-        "                                  'captra_tpu', 'cv2'):\n"
+        "                                  'captra_tpu', 'cv2',\n"
+        "                                  'tensorstore', 'matplotlib'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         f"import {module}\n"
@@ -103,6 +111,22 @@ def test_training_entry_points_import_with_jax_blocked(module):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_optional_packages_are_imported_inside_functions():
+    """tensorstore and matplotlib are imported where a function needs
+    them, never at a module's top level."""
+    top = re.compile(r"^(?:import|from)\s+(tensorstore|matplotlib)\b", re.M)
+    inner = re.compile(r"^\s+(?:import|from)\s+(tensorstore|matplotlib)\b",
+                       re.M)
+    found = set()
+    for path in _sources():
+        with open(path) as f:
+            text = f.read()
+        hit = top.search(text)
+        assert hit is None, f"{path} imports {hit.group(1)} at the top"
+        found.update(m.group(1) for m in inner.finditer(text))
+    assert found == {"tensorstore", "matplotlib"}
 
 
 def test_forbidden_pattern_catches_imports():
@@ -146,6 +170,8 @@ def _entry_points(cfg):
             cfg, None, None, {}, traj_batch=1, traj_frames=2, minibatch=1),
         "cli.rollout_finetune.main": lambda: rollout_cli.main(
             ["--coord", "c", "--rot", "r", "--out", "o"]),
+        "dryrun_multichip": lambda: dryrun_multichip(2),
+        "parallel.mesh.launch": lambda: mesh.launch(print, 2),
     }
 
 

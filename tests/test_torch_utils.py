@@ -135,3 +135,22 @@ def test_convert_pred_rtvec_to_matrix_equals_jax(sym):
     np.testing.assert_allclose(eye.numpy(), np.broadcast_to(np.eye(3),
                                                             eye.shape),
                                atol=1e-5)
+
+
+def test_written_whole_shows_the_whole_file_or_none(tmp_path):
+    """A reader sees nothing at the path while the block writes, the whole
+    file after it; an error in the block leaves the old file and no
+    temporary behind (the ranks of a data-parallel run cache the same
+    dataset files)."""
+    path = str(tmp_path / "split.txt")
+    with misc.written_whole(path) as f:
+        f.write("a\n")
+        f.flush()
+        assert not os.path.exists(path)
+    assert open(path).read() == "a\n"
+    with pytest.raises(RuntimeError):
+        with misc.written_whole(path) as f:
+            f.write("partial")
+            raise RuntimeError("stop")
+    assert open(path).read() == "a\n"
+    assert os.listdir(tmp_path) == ["split.txt"]

@@ -2,6 +2,8 @@
 same tiny configuration built from each package's own schema, numpy views of
 flax variables, and seeded perturbations so converted norm statistics are
 not identities."""
+import contextlib
+
 import numpy as np
 
 BOTTLE = dict(category="1", name="bottle", num_parts=1, num_joints=0,
@@ -510,3 +512,267 @@ def pose_errors(got: dict, want: dict) -> tuple:
             float(np.abs(np.asarray(got["translation"]).reshape(3)
                          - want["translation"].reshape(3)).max()),
             float(rdiff))
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """torch on one intra-op thread inside the block, restored after: where
+    test processes share the cores, torch's default of a thread a core
+    oversubscribes them and its small ops stall at their barriers."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+# ---------------------------------------------------------------------------
+# data-parallel ranks (tests/test_torch_parallel.py, tests/test_torch_cuda.py
+# and chip_smoke.py start them with `parallel.mesh.launch`: this module
+# imports numpy alone at the top, so a spawned rank imports no JAX)
+# ---------------------------------------------------------------------------
+
+def skew_batch(batch, num_parts: int):
+    """A synthetic batch made a fair test of data parallelism: its halves
+    get different BatchNorm statistics (the second half's clouds scaled by
+    1.7 and moved by 0.2) and each row a different count of points in each
+    part and out of every part (the last row wholly outside: no part-0
+    point, so the symmetric NOCS loss's pairwise term skips it).  Plain
+    DDP, with per-rank statistics and per-rank means, differs from the
+    global-batch step on it.  Returns a new dict (points and labels as
+    numpy)."""
+    out = dict(batch)
+    points = np.array(batch["points"], np.float32)
+    labels = np.array(batch["labels"])
+    B, N = labels.shape
+    half = B // 2
+    points[half:] = points[half:] * 1.7 + 0.2
+    for b in range(B):
+        cut = (N * b) // (2 * B) if b < B - 1 else N
+        labels[b, :cut] = num_parts               # out of every part
+        if num_parts > 1:
+            labels[b, cut:cut + 3 * b] = 0        # part 0 grows with b
+    out["points"], out["labels"] = points, labels
+    return out
+
+
+def as_float64(tree):
+    """Every float tensor / array of a batch or draws tree (dicts, `Pose`s)
+    as a float64 tensor; other leaves as tensors."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: as_float64(v) for k, v in tree.items()}
+    if hasattr(tree, "map"):
+        return tree.map(as_float64)
+    x = torch.as_tensor(np.asarray(tree) if not torch.is_tensor(tree)
+                        else tree)
+    return x.double() if x.is_floating_point() else x
+
+
+def f64_train_state(trainer, variables):
+    """A port train state of flax `variables` in float64 (BN and GN then
+    compute their statistics in float64 too), fresh moments."""
+    from captra_tpu_torch.training import trainer as ttrainer
+    from captra_tpu_torch.training.convert import load_flax_variables
+    module = load_flax_variables(
+        trainer.net_cls(trainer.cfg, device=trainer.device),
+        variables).double()
+    params, grads, layout = ttrainer.flatten_parameters(module)
+    return ttrainer.TrainState(module=module, params=params, grads=grads,
+                               opt_state=trainer.tx.init(params),
+                               layout=layout)
+
+
+def step_record(state, losses) -> dict:
+    """What a train step is held to: its losses, the flat gradient, the
+    flat parameters after it and the BN running statistics, as numpy."""
+    return {"losses": {k: float(v) for k, v in losses.items()},
+            "grads": state.grads.detach().cpu().numpy().copy(),
+            "params": state.params.detach().cpu().numpy().copy(),
+            "stats": {k: v.detach().cpu().numpy().copy() for k, v in
+                      state.module.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))}}
+
+
+def dp_train_rank(rank, world, device, runs, hybrid=None):
+    """One rank of float64 data-parallel runs: for each (config, variables,
+    global batches, their global draws) of `runs`, the state of the
+    variables and a step on the rank's shard of each batch with its shard
+    of the draws; the group flat, or a (dcn, ici) grid.  Returns a list
+    of `step_record`s a step, for each run."""
+    import torch
+    from captra_tpu_torch.parallel import mesh
+    from captra_tpu_torch.training.trainer import Trainer
+    dp = (mesh.data_parallel_mesh() if hybrid is None
+          else mesh.hybrid_data_parallel_mesh(*hybrid))
+    out = []
+    for cfg, variables, batches, draws in runs:
+        trainer = Trainer(cfg, steps_per_epoch=2, device=device, dp=dp)
+        state = f64_train_state(trainer, variables)
+        records = []
+        for batch, dr in zip(batches, draws):
+            state, losses, _ = trainer.train_step(
+                state, mesh.shard_batch(as_float64(batch), rank, world),
+                draws=mesh.shard_batch(as_float64(dr), rank, world))
+            records.append(step_record(state, losses))
+        assert torch.isfinite(state.params).all()
+        out.append(records)
+    return out
+
+
+def dp_grid_rank(rank, world, device, runs):
+    """`dp_train_rank` over the flat group, then the first run over a
+    (2, world // 2) grid, and the messages of the grid's three
+    ValueErrors (dcn not dividing the ranks, more groups than ranks,
+    dcn * ici not the ranks)."""
+    from captra_tpu_torch.parallel import mesh
+    errors = []
+    for dcn, ici in ((3, None), (2 * world, None), (2, 1)):
+        try:
+            mesh.hybrid_data_parallel_mesh(dcn, ici)
+        except ValueError as e:
+            errors.append(str(e))
+    return {"flat": dp_train_rank(rank, world, device, runs),
+            "grid": dp_train_rank(rank, world, device, runs[:1],
+                                  hybrid=(2, world // 2)),
+            "errors": errors}
+
+
+def dp_orbax_rank(rank, world, device, cfg, variables, batch, draws,
+                  ckpt_dir):
+    """A data-parallel step, an orbax save by rank 0 alone, a barrier, and
+    a restore on every rank into a fresh state: whether the restored
+    parameters, moments, BN statistics and step equal the rank's own bit
+    for bit, with the rank's parameters."""
+    import torch
+    from captra_tpu_torch.parallel import mesh
+    from captra_tpu_torch.training import checkpoint as ckpt
+    from captra_tpu_torch.training.trainer import Trainer
+    dp = mesh.data_parallel_mesh()
+    trainer = Trainer(cfg, steps_per_epoch=2, device=device, dp=dp)
+    state = trainer.init_state(variables=variables)
+    state, _, _ = trainer.train_step(
+        state, mesh.shard_batch(batch, rank, world),
+        draws=mesh.shard_batch(draws, rank, world))
+    if rank == 0:
+        ckpt.save_train_state(ckpt_dir, 0, state, format="orbax",
+                              grad_clip=cfg.optim.grad_clip)
+    dp.barrier()
+    back = ckpt.restore_state(ckpt.load_checkpoint(
+        ckpt.latest_checkpoint(ckpt_dir)), trainer.init_state())
+    own, got = state.module.state_dict(), back.module.state_dict()
+    return {"params": state.params.numpy().copy(),
+            "equal": (torch.equal(back.params, state.params)
+                      and all(torch.equal(back.opt_state[k],
+                                          state.opt_state[k])
+                              for k in ("mu", "nu"))
+                      and back.opt_state["count"] == 1 and back.step == 1
+                      and all(torch.equal(got[k], own[k]) for k in own))}
+
+
+def dp_track_rank(rank, world, device):
+    """`cli.track.track_sequences` over a batch of 3 and one of 2 synthetic
+    trajectories of a tiny bottle (random nets), under a flat group when
+    world > 1; returns its per-trajectory averages."""
+    import contextlib
+    import io
+    import torch
+    from captra_tpu_torch.cli.track import track_sequences
+    from captra_tpu_torch.config import schema
+    from captra_tpu_torch.data.synthetic import (
+        batch_trajectories, make_trajectory,
+    )
+    from captra_tpu_torch.models.coordnet import CoordNet
+    from captra_tpu_torch.models.rotnet import RotNet
+    from captra_tpu_torch.parallel import mesh
+    from captra_tpu_torch.tracking.tracker import make_track_step
+    cfg = tiny_config(schema, "bottle", num_points=64)
+    g = torch.Generator().manual_seed(0)
+    step = make_track_step(cfg, CoordNet(cfg, device=device, generator=g),
+                           RotNet(cfg, device=device, generator=g),
+                           device=device)
+    seqs = []
+    for seeds in ((0, 1, 2), (3, 4)):
+        batch = batch_trajectories([make_trajectory(
+            seed=s, obj=cfg.obj, num_frames=4, num_points=64)
+            for s in seeds])
+        seqs.append((tuple(f"t{s}" for s in seeds), batch))
+    dp = mesh.data_parallel_mesh() if world > 1 else None
+    with contextlib.redirect_stdout(io.StringIO()):
+        return track_sequences(cfg, step, seqs, device=device, dp=dp)
+
+
+def dp_cli_rank(rank, world, device, module, argv, *extra):
+    """The rank body of a CLI (`<module>._rank_main`, what its `main`
+    hands to `parallel.mesh.launch` at `--num_devices world`) on `argv`;
+    returns what the rank printed."""
+    import contextlib
+    import importlib
+    import io
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        importlib.import_module(module)._rank_main(rank, world, device,
+                                                   argv, *extra)
+    return text.getvalue()
+
+
+def dp_card_rank(rank, world, device, steps):
+    """`dp_card_steps` as one rank of a flat group (spawned by
+    `parallel.mesh.launch`)."""
+    from captra_tpu_torch.parallel import mesh
+    return dp_card_steps(device, steps, mesh.data_parallel_mesh(), rank,
+                         world)
+
+
+def dp_card_steps(device, steps, dp=None, rank=0, world=1):
+    """The full-width CoordNet laptop (batch 12 x 4096, float32, the
+    seeded net; SGD: Adam's first update is +-lr on float32 noise, so
+    float32 runs part by ~1e-3 of a loss from step 2 on) stepping under
+    `dp` (None: one process) on this rank's
+    shard of a fixed global batch with its shard of the global draws (a
+    seeded CPU generator): step 1's losses and flat gradient, the FPS
+    launches of each step, then the parameters and BN statistics after
+    `steps` steps."""
+    import torch
+    from captra_tpu_torch.config import get_config
+    from captra_tpu_torch.data.synthetic import make_frame_batch
+    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.parallel import mesh
+    from captra_tpu_torch.training.trainer import Trainer
+    import dataclasses
+    cfg = get_config("config_coordnet.yml")
+    cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, optimizer="sgd"))
+    trainer = Trainer(cfg, 50, device=device, dp=dp)
+    state = trainer.init_state(generator=torch.Generator().manual_seed(0))
+    batch = make_frame_batch(0, cfg.obj, batch=cfg.batch_size,
+                             num_points=cfg.num_points)
+    gen = torch.Generator().manual_seed(1)
+    out = {"launches": []}
+    for s in range(steps):
+        draws = mesh.shard_batch(Trainer(cfg, 50, device="cpu").draw(
+            batch, gen), rank, world)
+        draws = mesh.tree_map(lambda x: x.to(device), draws)
+        local = mesh.shard_batch(batch, rank, world)
+        fps.reset_launch_counts()
+        state, losses, _ = trainer.train_step(state, local, draws=draws)
+        torch.cuda.synchronize()
+        out["launches"].append({k: v for k, v in fps.launch_counts.items()
+                                if v})
+        if s == 0:
+            out["losses"] = {k: float(v) for k, v in losses.items()}
+            out["grads"] = state.grads.cpu().numpy()
+    out["params"] = state.params.cpu().numpy()
+    out["stats"] = {k: v.cpu().numpy() for k, v in
+                    state.module.state_dict().items()
+                    if k.endswith(("running_mean", "running_var"))}
+    return out
+
+
+def dp_jobs_rank(rank, world, device, jobs):
+    """Several of this module's rank functions in one launch (starting the
+    ranks costs more than most checks): {name: fn(rank, world, device,
+    *args)} for each (name, function name, args) of `jobs`, in order."""
+    return {name: globals()[fn](rank, world, device, *args)
+            for name, fn, args in jobs}
