@@ -229,6 +229,27 @@ def init_xavier_(module: nn.Module,
     return module
 
 
+# flax's truncated normal keeps draws within 2 standard deviations, and
+# `variance_scaling` divides its stddev by the truncated normal's own stddev
+# (jax.nn.initializers.variance_scaling)
+_TRUNCATED_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_lecun_normal_(linear: nn.Linear,
+                       generator: torch.Generator | None = None
+                       ) -> nn.Linear:
+    """Flax's default `Dense` initialisation for one Linear: a lecun-normal
+    kernel (a normal truncated at 2 standard deviations, of variance
+    1 / fan_in once truncated) and a zero bias, drawn from `generator`."""
+    fan_in = linear.weight.shape[1]
+    std = (1.0 / fan_in) ** 0.5 / _TRUNCATED_STD
+    nn.init.trunc_normal_(linear.weight, std=std, a=-2.0 * std, b=2.0 * std,
+                          generator=generator)
+    linear.bias.zero_()
+    return linear
+
+
 # `network/compute_dtype` -> the torch compute dtype (None: float32, the
 # modules' own); the JAX package takes any name `jnp.dtype` reads and uses
 # it where it is not "float32"

@@ -9,7 +9,7 @@ from captra_tpu_torch.config.schema import Config
 from captra_tpu_torch.device import resolve_device
 from captra_tpu_torch.models.backbone import PointNet2Msg
 from captra_tpu_torch.models.blocks import (
-    PointMLP, at_least_f32, compute_dtype, init_xavier_,
+    PointMLP, at_least_f32, compute_dtype, init_lecun_normal_, init_xavier_,
 )
 from captra_tpu_torch.pose import procrustes
 from captra_tpu_torch.pose.part_dof import Pose, canonicalize_columns
@@ -49,15 +49,17 @@ class CoordNet(nn.Module):
             tuple(net.nocs_head_dims) + (3 * cfg.obj.num_parts,),
             norm=net.norm, final_acti="none", bn_momentum=bn_momentum,
             dtype=dtype)
+        init_xavier_(self, generator)
         self.basin_head = net.basin_head
         if self.basin_head:
             # pooled max and mean of the features -> 128 -> one logit, in
-            # float32 (flax's Dense with no dtype); drawn xavier-uniform
-            # here, where flax draws lecun-normal: only trained weights
-            # score anything
+            # float32 (flax's Dense with no dtype), initialised as flax's
+            # Dense is (lecun-normal kernels, zero biases); drawn after
+            # every other layer, so that the head moves no other draw
             self.basin_fc1 = nn.Linear(2 * net.backbone_out_dim, 128)
             self.basin_fc2 = nn.Linear(128, 1)
-        init_xavier_(self, generator)
+            for fc in (self.basin_fc1, self.basin_fc2):
+                init_lecun_normal_(fc, generator)
         self.to(device).eval()
 
     def forward(self, canon_points: torch.Tensor) -> dict:

@@ -187,7 +187,25 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 (matplotlib) and the orbax format (tensorstore) run where
                 their package is installed and raise ImportError naming
                 it where it is not.
- 13. summary -- JSON lines of the paths and of the kernels, then, as the
+ 13. quality -- the quality harness's CLIs at full width (bottle, 4096
+                points, float32, BN): `cli.flagship_demo.main` with
+                --device_aug for QUALITY_STEPS steps a leg (CoordNet, then
+                RotNet, batch 12; snapshots at QUALITY_EVAL_AT) and its
+                tracking of 8 x 20 synthetic frames, then
+                `cli.eval_checkpoint_track.main` on its checkpoints,
+                `cli.train_basin_head.main` for QUALITY_BASIN_STEPS steps on
+                its CoordNet and `cli.gtless_init_probe.main` (thetas 0 and
+                45, a 16-candidate search).  Counters zeroed just before
+                each CLI and read just after: FPS launches as `route`
+                predicts.  Every loss finite and each leg's loss falling
+                (the last QUALITY_WINDOW steps' mean below the first's);
+                the trained nets' poses within 1e-4 of a twin with the
+                plain FPS on the card; the eval CLI's means within 1e-4 of
+                the flagship's tracking of the same nets; the basin
+                checkpoint with its head and seg / NPCS equal bit for bit
+                to the input net's; the probe's rows; each kernel held
+                against the plain FPS on every FPS input of the phase.
+ 14. summary -- JSON lines of the paths and of the kernels, then, as the
                 last line, {"ok": true, "device": {...}}.
 
 --profile DIR adds a torch.profiler window (`utils/profiling.trace`) over a
@@ -3434,6 +3452,244 @@ def _orbax_round_trip(tmp: str) -> str:
     return f"orbax round trip of {path} equal"
 
 
+# the quality phase: the quality harness's four CLIs at full width (bottle,
+# 4096 points, float32, BN, batch 12, --device_aug), cut to a few steps
+QUALITY_STEPS = 150         # train steps a leg of the flagship
+QUALITY_EVAL_AT = (50, 150)
+QUALITY_WINDOW = 50         # steps a mean of the loss-falls gate
+QUALITY_TRACK = (8, 20)     # tracked trajectories x frames
+QUALITY_BASIN_STEPS = 50
+QUALITY_BASIN_BATCH = 16
+QUALITY_THETAS = (0, 45)
+QUALITY_SEARCH = 16         # init_search candidates of the probe
+QUALITY_TOL = 1e-4
+QUALITY_WHERE = "the quality phase's FPS inputs, ms a call"
+QUALITY_NETS = ["--dtype", "float32", "--norm", "bn"]
+
+
+def _quality_launches(cfg_legs: dict, cfg_track, basin_cfg) -> dict:
+    """FPS launches of each quality CLI as `route` predicts them: the
+    flagship's train steps (both legs) and its four tracked runs (warm-up,
+    timed, a budget each), the eval CLI's one variant, the basin head's
+    steps and held-out probes, the probe's searches (one CoordNet chunk of
+    B x K clouds a pass) and its tracked rows."""
+    from collections import Counter
+    from captra_tpu_torch.cli import train_basin_head as bh
+    B, T = QUALITY_TRACK
+    tracked = Counter({k: v * (T - 1) for k, v in
+                       predicted_launches(cfg_track, B).items()})
+    flag = Counter()
+    for cfg in cfg_legs.values():
+        for k, v in train_launches(cfg, cfg.batch_size).items():
+            flag[k] += v * QUALITY_STEPS
+    for k, v in tracked.items():
+        flag[k] += v * (2 + len(QUALITY_EVAL_AT))
+    N, n1 = basin_cfg.num_points, basin_cfg.pointnet.sa1.npoint
+    held = bh.HELD_OUT_TRAJS * bh.HELD_OUT_FRAMES
+    basin = Counter()
+    for clouds, times in ((QUALITY_BASIN_BATCH, QUALITY_BASIN_STEPS),
+                          (held, len(bh.PROBE_THETAS))):
+        for n in (N, n1):
+            basin[fps_kernel(clouds, n)] += times
+    M = min(QUALITY_SEARCH, -(-128 // B)) * B
+    rows = 1 + len(QUALITY_THETAS)
+    probe = Counter({k: v * (1 + rows) for k, v in tracked.items()})
+    for n in (N, n1):
+        probe[fps_kernel(M, n)] += 2 * rows
+    return {"flagship": dict(flag), "eval": dict(tracked),
+            "basin": dict(basin), "probe": dict(probe)}
+
+
+def phase_quality(kernels: dict) -> dict:
+    """The quality harness on the card, through its entry points:
+    `cli.flagship_demo.main` (QUALITY_STEPS a leg, --device_aug, --eval_at
+    QUALITY_EVAL_AT, tracking 8 x 20), `cli.eval_checkpoint_track.main` on
+    its checkpoints, `cli.train_basin_head.main` for QUALITY_BASIN_STEPS on
+    its CoordNet, `cli.gtless_init_probe.main --thetas 0,45 --init_search
+    16` (the counters zeroed just before each and read just after).  Gates:
+    every loss finite, each leg's last QUALITY_WINDOW steps' mean loss below
+    its first's, the tracked poses of the trained nets within QUALITY_TOL
+    of a twin with the plain FPS on the card, the eval CLI's means within
+    QUALITY_TOL of the flagship's tracking of the same nets (its last
+    budget's), the basin checkpoint holding `basin_fc1/2` with seg and
+    NPCS equal bit for bit to the input CoordNet's, every probe row
+    present and the gt-init row finite, FPS launches as `route` predicts,
+    and every kernel equal to the plain FPS on the phase's recorded
+    inputs."""
+    from captra_tpu_torch.cli import (
+        eval_checkpoint_track, flagship_demo, gtless_init_probe,
+        train_basin_head,
+    )
+    from captra_tpu_torch.eval import quality
+    from captra_tpu_torch.models.coordnet import CoordNet
+    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.training import checkpoint
+    from captra_tpu_torch.training.convert import load_flax_variables
+
+    dev = torch.device("cuda")
+    B, T = QUALITY_TRACK
+    out = {"seconds": {}, "launches": {}}
+    calls = {}
+
+    def run(name, fn, argv):
+        sync(dev)
+        fps.reset_launch_counts()
+        with recording_fps(calls):
+            text, ret, seconds = _printed(fn, argv, device=dev)
+        sync(dev)
+        out["launches"][name] = {k: v for k, v in fps.launch_counts.items()
+                                 if v}
+        out["seconds"][name] = seconds
+        for line in text.strip().splitlines():
+            log(f"  | {line}")
+        log(f"quality {name}: {seconds:.1f} s, FPS launches "
+            f"{out['launches'][name]}")
+        return ret
+
+    with tempfile.TemporaryDirectory(prefix="captra_quality_") as tmp:
+        fd_dir = os.path.join(tmp, "flagship")
+        fd_argv = ["--steps", str(QUALITY_STEPS), "--device_aug",
+                   "--eval_at", ",".join(map(str, QUALITY_EVAL_AT)),
+                   "--track_trajs", str(B), "--out", fd_dir, *QUALITY_NETS]
+        fd_args = flagship_demo.parse(fd_argv)
+        cfg_legs = {net: flagship_demo.leg_config(fd_args, net, config)
+                    for net, config in flagship_demo.NETS}
+        cfg_track = flagship_demo.track_config(fd_args)
+        basin_dir = os.path.join(tmp, "basin")
+        basin_args = train_basin_head.parse(["--coord", "c", "--out", "o",
+                                             *QUALITY_NETS])
+        want = _quality_launches(cfg_legs, cfg_track,
+                                 train_basin_head.config(basin_args))
+
+        report = run("flagship", flagship_demo.main, fd_argv)
+        coord = os.path.join(fd_dir, "canon_coord", "ckpt", "model_0000")
+        rot = os.path.join(fd_dir, "rot", "ckpt", "model_0000")
+        for net in cfg_legs:
+            windows = report[net]["total_loss_by_50"]
+            final = list(report[net]["final"].values())
+            if not (np.isfinite(windows).all() and np.isfinite(final).all()):
+                raise AssertionError(f"quality {net}: non-finite losses "
+                                     f"{windows} {report[net]['final']}")
+            if not windows[-1] < windows[0]:
+                raise AssertionError(
+                    f"quality {net}: the last {QUALITY_WINDOW} steps' mean "
+                    f"loss {windows[-1]:.4f} is not below the first's "
+                    f"{windows[0]:.4f}")
+        last = report["trend"][QUALITY_EVAL_AT[-1]]
+
+        # the trained nets' tracking against a twin with the plain FPS
+        nets = quality.load_nets(cfg_track, coord, rot, dev)
+        data = quality.eval_set(cfg_track.obj, B, T, cfg_track.num_points)
+        gt = data["pose"].to(dev)
+        points = torch.from_numpy(data["points"]).to(dev)
+        pose = quality.track(cfg_track, *nets, gt[0], points, dev)
+        with plain_fps_on_card():
+            plain = quality.track(cfg_track, *nets, gt[0], points, dev)
+        twin = _max_pose_diff(pose, plain)
+        log(f"quality: the trained nets' tracked poses (8 x 20) against the "
+            f"plain FPS's on the card: max |diff| {twin}")
+        if not (max(twin.values()) <= QUALITY_TOL and all(
+                bool(torch.isfinite(getattr(pose, f)).all())
+                for f in ("rotation", "translation", "scale"))):
+            raise AssertionError(f"quality: tracked poses differ from the "
+                                 f"plain FPS's by {twin}")
+        del nets, pose, plain
+
+        ev = run("eval", eval_checkpoint_track.main,
+                 ["--coord", coord, "--rot", rot, "--trajs", str(B),
+                  "--frames", str(T), *QUALITY_NETS])
+        got = ev["variants"][""]
+        eval_diff = max(abs(got[part][k] - last[part][k])
+                        for part in ("frame1", "full") for k in last[part])
+        timed_diff = max(abs(got["full"][k] - report["tracking"]["tracked"][k])
+                         for k in got["full"])
+        log(f"quality eval: means within {eval_diff:.3e} of the flagship's "
+            f"tracking at step {QUALITY_EVAL_AT[-1]} (the same nets and "
+            f"points); {timed_diff:.3e} from its timed block (points + "
+            f"1e-9)")
+        if eval_diff > QUALITY_TOL:
+            raise AssertionError(f"quality eval: means differ from the "
+                                 f"flagship's by {eval_diff}")
+
+        basin = run("basin", train_basin_head.main,
+                    ["--coord", coord, "--out", basin_dir, "--steps",
+                     str(QUALITY_BASIN_STEPS), "--batch",
+                     str(QUALITY_BASIN_BATCH), *QUALITY_NETS])
+        payload = checkpoint.load_checkpoint(basin["checkpoint"])
+        if not {"basin_fc1", "basin_fc2"} <= set(payload["params"]):
+            raise AssertionError("quality basin: the checkpoint has no "
+                                 "basin_fc1/2")
+        basin_cfg = train_basin_head.config(basin_args)
+        plain_cfg = basin_cfg.replace(network=dataclasses.replace(
+            basin_cfg.network, basin_head=False))
+        with torch.no_grad():
+            head_net = load_flax_variables(
+                CoordNet(basin_cfg, device=dev),
+                {"params": payload["params"],
+                 "batch_stats": payload["batch_stats"]})
+            base_net = load_flax_variables(
+                CoordNet(plain_cfg, device=dev),
+                checkpoint.load_track_variables(coord, rot)[0])
+            canon = points[0, :4]
+            a, b = head_net(canon), base_net(canon)
+        if not all(torch.equal(a[k], b[k]) for k in ("seg", "nocs")):
+            raise AssertionError("quality basin: seg / NPCS differ from the "
+                                 "input CoordNet's")
+        sep = basin["sep"]
+        log(f"quality basin: seg and NPCS equal to the input net's bit for "
+            f"bit; held-out mean logit by theta {sep}")
+
+        probe = run("probe", gtless_init_probe.main,
+                    ["--coord", coord, "--rot", rot, *QUALITY_NETS,
+                     "--thetas", ",".join(map(str, QUALITY_THETAS)),
+                     "--init_search", str(QUALITY_SEARCH)])
+        tags = [r["tag"] for r in probe["rows"]]
+        want_tags = ["gt-init", "cloud-init/raw-draw"] + [
+            f"cloud-init/theta={t:g}" for t in map(float, QUALITY_THETAS)]
+        gt_row = probe["rows"][0]
+        if tags != want_tags or not np.isfinite(
+                list(gt_row["frame1"].values())
+                + list(gt_row["full"].values())).all():
+            raise AssertionError(f"quality probe: rows {tags}, gt-init "
+                                 f"{gt_row}")
+
+    for name, launches in out["launches"].items():
+        if launches != want[name]:
+            raise AssertionError(f"quality {name}: FPS launches {launches}, "
+                                 f"expected {want[name]}")
+    by_shape = {}
+    for (n, npoint), clouds in calls.items():
+        for xyz in clouds:
+            by_shape.setdefault((xyz.shape[0], n, npoint), []).append(xyz)
+    del calls
+    for (b, n, npoint), clouds in sorted(by_shape.items()):
+        check_video(fps, kernels, (fps.route(b, n),), clouds, npoint,
+                    "phase", len(clouds), QUALITY_WHERE, path="quality",
+                    unit="call")
+    del by_shape
+    torch.cuda.empty_cache()
+    out.update(
+        steps=QUALITY_STEPS, eval_at=list(QUALITY_EVAL_AT),
+        device=report["tracking"]["device"],
+        flagship={net: {"sec": report[net]["sec"],
+                        "ms_per_step": report[net]["sec"] * 1e3
+                        / QUALITY_STEPS,
+                        "total_loss_by_50": report[net]["total_loss_by_50"]}
+                  for net in cfg_legs},
+        tracking_frame1=report["tracking_frame1"],
+        tracking=report["tracking"], trend=report["trend"],
+        plain_fps_diff=twin, eval=ev, eval_diff=eval_diff,
+        basin_sep={str(k): v for k, v in sep.items()},
+        probe=probe["rows"], predicted_launches=want)
+    log(f"quality: flagship {QUALITY_STEPS} steps a leg "
+        + ", ".join(f"{net} {v['ms_per_step']:.1f} ms a step, loss by "
+                    f"{QUALITY_WINDOW} steps {v['total_loss_by_50']}"
+                    for net, v in out["flagship"].items())
+        + f"; tracking {report['tracking']['fps_per_chip']} frames/s at B="
+        f"{B}; on {report['tracking']['device']}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -3480,6 +3736,8 @@ def main() -> int:
         lap("multi")
         vis = phase_vis(data, data_tmp)
         lap("vis")
+    qual = phase_quality(kernels=kernels)
+    lap("quality")
 
     line = []
     for name, cases in kernels.items():
@@ -3510,7 +3768,9 @@ def main() -> int:
                        for r in multi["w2_launches_per_step_by_rank"]),
                    **{f"multi_track_{r}": sum(
                        lr.get(name, 0) for lr in v["launches_by_rank"])
-                      for r, v in multi["tracks"].items()}}
+                      for r, v in multi["tracks"].items()},
+                   **{f"quality_{r}": v.get(name, 0)
+                      for r, v in qual["launches"].items()}}
         line.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
@@ -3533,6 +3793,7 @@ def main() -> int:
     log(json.dumps({"rollout": roll}))
     log(json.dumps({"multi": multi}))
     log(json.dumps({"vis": vis}))
+    log(json.dumps({"quality": qual}))
     log(json.dumps({"seconds": seconds}))
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

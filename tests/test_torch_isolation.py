@@ -12,11 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from captra_tpu_torch.cli import eval_checkpoint_track as eval_ckpt_cli
 from captra_tpu_torch.cli import evaluate as evaluate_cli
 from captra_tpu_torch.cli import finetune as finetune_cli
+from captra_tpu_torch.cli import flagship_demo as flagship_cli
+from captra_tpu_torch.cli import gtless_init_probe as probe_cli
 from captra_tpu_torch.cli import rollout_finetune as rollout_cli
 from captra_tpu_torch.cli import track as track_cli
 from captra_tpu_torch.cli import train as train_cli
+from captra_tpu_torch.cli import train_basin_head as basin_cli
 from captra_tpu_torch.config import get_config, schema
 from captra_tpu_torch.config.presets import NOCS_BOTTLE_OVERRIDES, nocs_bottle
 from captra_tpu_torch.eval.evaluator import evaluate_results_dir
@@ -52,6 +56,7 @@ def _sources():
             if name.endswith(".py"):
                 yield os.path.join(base, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "quality_record.py")
 
 
 def test_import_pulls_in_no_jax():
@@ -89,7 +94,12 @@ def test_sources_import_no_jax():
     "captra_tpu_torch.data.sapien", "captra_tpu_torch.training.convert",
     "captra_tpu_torch.parallel.mesh", "captra_tpu_torch.parallel.dryrun",
     "captra_tpu_torch.training.orbax_io", "captra_tpu_torch.eval.visualize",
-    "captra_tpu_torch.cli.visualize"])
+    "captra_tpu_torch.cli.visualize",
+    # the quality harness, in one process
+    "captra_tpu_torch.eval.quality, captra_tpu_torch.cli.flagship_demo, "
+    "captra_tpu_torch.cli.eval_checkpoint_track, "
+    "captra_tpu_torch.cli.gtless_init_probe, "
+    "captra_tpu_torch.cli.train_basin_head"])
 def test_training_entry_points_import_with_jax_blocked(module):
     """The training, data-parallel, checkpoint and visualiser modules
     import in a process where importing jax, flax, optax, orbax,
@@ -171,6 +181,14 @@ def _entry_points(cfg):
         "cli.rollout_finetune.main": lambda: rollout_cli.main(
             ["--coord", "c", "--rot", "r", "--out", "o"]),
         "dryrun_multichip": lambda: dryrun_multichip(2),
+        "cli.eval_checkpoint_track.main": lambda: eval_ckpt_cli.main(
+            ["--coord", "c", "--rot", "r"]),
+        "cli.flagship_demo.main": lambda: flagship_cli.main(
+            ["--out", "o"]),
+        "cli.gtless_init_probe.main": lambda: probe_cli.main(
+            ["--coord", "c", "--rot", "r"]),
+        "cli.train_basin_head.main": lambda: basin_cli.main(
+            ["--coord", "c", "--out", "o"]),
         "parallel.mesh.launch": lambda: mesh.launch(print, 2),
     }
 
