@@ -43,8 +43,6 @@ import torch
 from captra_tpu_torch.config import get_config
 from captra_tpu_torch.device import resolve_device
 from captra_tpu_torch.eval import quality
-from captra_tpu_torch.models.coordnet import CoordNet
-from captra_tpu_torch.models.rotnet import RotNet
 from captra_tpu_torch.tracking.tracker import evaluate_track
 from captra_tpu_torch.training import checkpoint as ckpt
 from captra_tpu_torch.training.trainer import Trainer, to_device
@@ -199,16 +197,6 @@ def train_leg(args: argparse.Namespace, net_type: str, cfg, device) -> dict:
                        "total_loss_by_50": by_window}}
 
 
-def nets_of(cfg, coord_sd: dict, rot_sd: dict, device):
-    """A CoordNet and a RotNet of the tracking config holding the given
-    state dicts, in eval mode."""
-    coord = CoordNet(cfg, device=device)
-    coord.load_state_dict(coord_sd)
-    rotn = RotNet(cfg, device=device)
-    rotn.load_state_dict(rot_sd)
-    return coord.eval(), rotn.eval()
-
-
 def run(args: argparse.Namespace, device) -> tuple[dict, dict]:
     """Train both legs and track: (the EVIDENCE.json report, {net type:
     the leg's {"state", "snapshots", "report"}})."""
@@ -223,7 +211,7 @@ def run(args: argparse.Namespace, device) -> tuple[dict, dict]:
 
     # --- tracking ---------------------------------------------------------
     cfg = track_config(args)
-    coord, rotn = nets_of(cfg, legs["canon_coord"]["state"].module
+    coord, rotn = quality.nets_of(cfg, legs["canon_coord"]["state"].module
                           .state_dict(), legs["rot"]["state"].module
                           .state_dict(), device)
     T = TRACK_FRAMES
@@ -261,7 +249,8 @@ def run(args: argparse.Namespace, device) -> tuple[dict, dict]:
     rot_snaps = legs["rot"]["snapshots"]
     trend = {}
     for budget in sorted(set(coord_snaps) & set(rot_snaps)):
-        cb, rb = nets_of(cfg, coord_snaps[budget], rot_snaps[budget], device)
+        cb, rb = quality.nets_of(cfg, coord_snaps[budget],
+                                 rot_snaps[budget], device)
         f1, full = quality.track_means(cfg, cb, rb, init_pose, points, gt,
                                        device)
         trend[budget] = {"frame1": f1, "full": full}

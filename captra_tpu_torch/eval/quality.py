@@ -21,6 +21,8 @@ import numpy as np
 import torch
 
 from captra_tpu_torch.data.synthetic import batch_trajectories, make_trajectory
+from captra_tpu_torch.models.coordnet import CoordNet
+from captra_tpu_torch.models.rotnet import RotNet
 from captra_tpu_torch.pose.part_dof import Pose
 from captra_tpu_torch.tracking.tracker import (
     evaluate_track, init_pose_from_gt, make_track_step, track_trajectory,
@@ -66,6 +68,16 @@ def frozen_init(gt: Pose, sym: bool) -> dict:
     T = gt.scale.shape[0]
     frozen = gt.map(lambda x: x[:1].expand((T - 1,) + x.shape[1:]))
     return means(evaluate_track(frozen, gt.map(lambda x: x[1:]), sym))[1]
+
+
+def nets_of(cfg, coord_sd: dict, rot_sd: dict, device):
+    """A CoordNet and a RotNet of the tracking config holding the given
+    state dicts, in eval mode."""
+    coord = CoordNet(cfg, device=device)
+    coord.load_state_dict(coord_sd)
+    rotn = RotNet(cfg, device=device)
+    rotn.load_state_dict(rot_sd)
+    return coord.eval(), rotn.eval()
 
 
 def track(cfg, coord, rotn, init_pose: Pose, points, device) -> Pose:

@@ -205,7 +205,24 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 checkpoint with its head and seg / NPCS equal bit for bit
                 to the input net's; the probe's rows; each kernel held
                 against the plain FPS on every FPS input of the phase.
- 14. summary -- JSON lines of the paths and of the kernels, then, as the
+ 14. scripts -- the last three scripts' CLIs: `cli.smoke_train_track` at
+                its defaults (the tiny nets, 300 steps each, 256 points,
+                batch 8; tracking 4 x 15 frames trained and untrained
+                against the frozen init), `cli.sym_pwm_ablation --steps
+                100 --pwm 128,384` at full width (bottle, batch 12 x 4096,
+                GN, bfloat16) and `cli.init_search_scorer_diag` at its
+                defaults (8 x 8 x 4 candidates, 2 passes, CoordNet in
+                chunks of 128 clouds) with --dtype float32 --norm bn on the
+                quality phase's CoordNet.  Counters zeroed just before
+                each CLI and read just after: FPS launches as `route`
+                predicts.  The smoke's own gate (trained tdiff below the
+                frozen init's) and its trained nets' poses within 1e-4 of
+                a plain-FPS twin; every pwm leg's printed losses finite
+                and its last printed total below its step-0 total; every
+                diag row and pick present and finite, its fitted rotations
+                within 1e-4 of a plain-FPS twin; each kernel held against
+                the plain FPS on every FPS input of the phase.
+ 15. summary -- JSON lines of the paths and of the kernels, then, as the
                 last line, {"ok": true, "device": {...}}.
 
 --profile DIR adds a torch.profiler window (`utils/profiling.trace`) over a
@@ -3452,6 +3469,45 @@ def _orbax_round_trip(tmp: str) -> str:
     return f"orbax round trip of {path} equal"
 
 
+def counted_run(out: dict, calls: dict, phase: str, name: str, fn, *args,
+                **kwargs) -> tuple:
+    """`fn(*args, **kwargs)` with the FPS counters zeroed just before and
+    read just after (into `out["launches"][name]`, its seconds into
+    `out["seconds"][name]`) and its FPS inputs appended to `calls`; its
+    printed lines logged.  Returns (its printed text, its result)."""
+    from captra_tpu_torch.ops import fps
+    dev = torch.device("cuda")
+    sync(dev)
+    fps.reset_launch_counts()
+    with recording_fps(calls):
+        text, ret, seconds = _printed(fn, *args, **kwargs)
+    sync(dev)
+    out["launches"][name] = {k: v for k, v in fps.launch_counts.items() if v}
+    out["seconds"][name] = seconds
+    for line in text.strip().splitlines():
+        log(f"  | {line}")
+    log(f"{phase} {name}: {seconds:.1f} s, FPS launches "
+        f"{out['launches'][name]}")
+    return text, ret
+
+
+def check_recorded(kernels: dict, calls: dict, where: str, path: str):
+    """Hold the routed kernel against the plain FPS on every recorded FPS
+    input of a phase (`check_video`, one case a batch shape), and let the
+    inputs go."""
+    from captra_tpu_torch.ops import fps
+    by_shape = {}
+    for (n, npoint), clouds in calls.items():
+        for xyz in clouds:
+            by_shape.setdefault((xyz.shape[0], n, npoint), []).append(xyz)
+    calls.clear()
+    for (b, n, npoint), clouds in sorted(by_shape.items()):
+        check_video(fps, kernels, (fps.route(b, n),), clouds, npoint,
+                    "phase", len(clouds), where, path=path, unit="call")
+    del by_shape
+    torch.cuda.empty_cache()
+
+
 # the quality phase: the quality harness's four CLIs at full width (bottle,
 # 4096 points, float32, BN, batch 12, --device_aug), cut to a few steps
 QUALITY_STEPS = 150         # train steps a leg of the flagship
@@ -3500,8 +3556,9 @@ def _quality_launches(cfg_legs: dict, cfg_track, basin_cfg) -> dict:
             "basin": dict(basin), "probe": dict(probe)}
 
 
-def phase_quality(kernels: dict) -> dict:
-    """The quality harness on the card, through its entry points:
+def phase_quality(kernels: dict, tmp: str) -> dict:
+    """The quality harness on the card, through its entry points, writing
+    under `tmp` (the scripts phase reads its CoordNet checkpoint there):
     `cli.flagship_demo.main` (QUALITY_STEPS a leg, --device_aug, --eval_at
     QUALITY_EVAL_AT, tracking 8 x 20), `cli.eval_checkpoint_track.main` on
     its checkpoints, `cli.train_basin_head.main` for QUALITY_BASIN_STEPS on
@@ -3522,7 +3579,6 @@ def phase_quality(kernels: dict) -> dict:
     )
     from captra_tpu_torch.eval import quality
     from captra_tpu_torch.models.coordnet import CoordNet
-    from captra_tpu_torch.ops import fps
     from captra_tpu_torch.training import checkpoint
     from captra_tpu_torch.training.convert import load_flax_variables
 
@@ -3532,142 +3588,120 @@ def phase_quality(kernels: dict) -> dict:
     calls = {}
 
     def run(name, fn, argv):
-        sync(dev)
-        fps.reset_launch_counts()
-        with recording_fps(calls):
-            text, ret, seconds = _printed(fn, argv, device=dev)
-        sync(dev)
-        out["launches"][name] = {k: v for k, v in fps.launch_counts.items()
-                                 if v}
-        out["seconds"][name] = seconds
-        for line in text.strip().splitlines():
-            log(f"  | {line}")
-        log(f"quality {name}: {seconds:.1f} s, FPS launches "
-            f"{out['launches'][name]}")
-        return ret
+        return counted_run(out, calls, "quality", name, fn, argv,
+                           device=dev)[1]
 
-    with tempfile.TemporaryDirectory(prefix="captra_quality_") as tmp:
-        fd_dir = os.path.join(tmp, "flagship")
-        fd_argv = ["--steps", str(QUALITY_STEPS), "--device_aug",
-                   "--eval_at", ",".join(map(str, QUALITY_EVAL_AT)),
-                   "--track_trajs", str(B), "--out", fd_dir, *QUALITY_NETS]
-        fd_args = flagship_demo.parse(fd_argv)
-        cfg_legs = {net: flagship_demo.leg_config(fd_args, net, config)
-                    for net, config in flagship_demo.NETS}
-        cfg_track = flagship_demo.track_config(fd_args)
-        basin_dir = os.path.join(tmp, "basin")
-        basin_args = train_basin_head.parse(["--coord", "c", "--out", "o",
-                                             *QUALITY_NETS])
-        want = _quality_launches(cfg_legs, cfg_track,
-                                 train_basin_head.config(basin_args))
+    fd_dir = os.path.join(tmp, "flagship")
+    fd_argv = ["--steps", str(QUALITY_STEPS), "--device_aug",
+               "--eval_at", ",".join(map(str, QUALITY_EVAL_AT)),
+               "--track_trajs", str(B), "--out", fd_dir, *QUALITY_NETS]
+    fd_args = flagship_demo.parse(fd_argv)
+    cfg_legs = {net: flagship_demo.leg_config(fd_args, net, config)
+                for net, config in flagship_demo.NETS}
+    cfg_track = flagship_demo.track_config(fd_args)
+    basin_dir = os.path.join(tmp, "basin")
+    basin_args = train_basin_head.parse(["--coord", "c", "--out", "o",
+                                         *QUALITY_NETS])
+    want = _quality_launches(cfg_legs, cfg_track,
+                             train_basin_head.config(basin_args))
 
-        report = run("flagship", flagship_demo.main, fd_argv)
-        coord = os.path.join(fd_dir, "canon_coord", "ckpt", "model_0000")
-        rot = os.path.join(fd_dir, "rot", "ckpt", "model_0000")
-        for net in cfg_legs:
-            windows = report[net]["total_loss_by_50"]
-            final = list(report[net]["final"].values())
-            if not (np.isfinite(windows).all() and np.isfinite(final).all()):
-                raise AssertionError(f"quality {net}: non-finite losses "
-                                     f"{windows} {report[net]['final']}")
-            if not windows[-1] < windows[0]:
-                raise AssertionError(
-                    f"quality {net}: the last {QUALITY_WINDOW} steps' mean "
-                    f"loss {windows[-1]:.4f} is not below the first's "
-                    f"{windows[0]:.4f}")
-        last = report["trend"][QUALITY_EVAL_AT[-1]]
+    report = run("flagship", flagship_demo.main, fd_argv)
+    coord = os.path.join(fd_dir, "canon_coord", "ckpt", "model_0000")
+    rot = os.path.join(fd_dir, "rot", "ckpt", "model_0000")
+    for net in cfg_legs:
+        windows = report[net]["total_loss_by_50"]
+        final = list(report[net]["final"].values())
+        if not (np.isfinite(windows).all() and np.isfinite(final).all()):
+            raise AssertionError(f"quality {net}: non-finite losses "
+                                 f"{windows} {report[net]['final']}")
+        if not windows[-1] < windows[0]:
+            raise AssertionError(
+                f"quality {net}: the last {QUALITY_WINDOW} steps' mean "
+                f"loss {windows[-1]:.4f} is not below the first's "
+                f"{windows[0]:.4f}")
+    last = report["trend"][QUALITY_EVAL_AT[-1]]
 
-        # the trained nets' tracking against a twin with the plain FPS
-        nets = quality.load_nets(cfg_track, coord, rot, dev)
-        data = quality.eval_set(cfg_track.obj, B, T, cfg_track.num_points)
-        gt = data["pose"].to(dev)
-        points = torch.from_numpy(data["points"]).to(dev)
-        pose = quality.track(cfg_track, *nets, gt[0], points, dev)
-        with plain_fps_on_card():
-            plain = quality.track(cfg_track, *nets, gt[0], points, dev)
-        twin = _max_pose_diff(pose, plain)
-        log(f"quality: the trained nets' tracked poses (8 x 20) against the "
-            f"plain FPS's on the card: max |diff| {twin}")
-        if not (max(twin.values()) <= QUALITY_TOL and all(
-                bool(torch.isfinite(getattr(pose, f)).all())
-                for f in ("rotation", "translation", "scale"))):
-            raise AssertionError(f"quality: tracked poses differ from the "
-                                 f"plain FPS's by {twin}")
-        del nets, pose, plain
+    # the trained nets' tracking against a twin with the plain FPS
+    nets = quality.load_nets(cfg_track, coord, rot, dev)
+    data = quality.eval_set(cfg_track.obj, B, T, cfg_track.num_points)
+    gt = data["pose"].to(dev)
+    points = torch.from_numpy(data["points"]).to(dev)
+    pose = quality.track(cfg_track, *nets, gt[0], points, dev)
+    with plain_fps_on_card():
+        plain = quality.track(cfg_track, *nets, gt[0], points, dev)
+    twin = _max_pose_diff(pose, plain)
+    log(f"quality: the trained nets' tracked poses (8 x 20) against the "
+        f"plain FPS's on the card: max |diff| {twin}")
+    if not (max(twin.values()) <= QUALITY_TOL and all(
+            bool(torch.isfinite(getattr(pose, f)).all())
+            for f in ("rotation", "translation", "scale"))):
+        raise AssertionError(f"quality: tracked poses differ from the "
+                             f"plain FPS's by {twin}")
+    del nets, pose, plain
 
-        ev = run("eval", eval_checkpoint_track.main,
-                 ["--coord", coord, "--rot", rot, "--trajs", str(B),
-                  "--frames", str(T), *QUALITY_NETS])
-        got = ev["variants"][""]
-        eval_diff = max(abs(got[part][k] - last[part][k])
-                        for part in ("frame1", "full") for k in last[part])
-        timed_diff = max(abs(got["full"][k] - report["tracking"]["tracked"][k])
-                         for k in got["full"])
-        log(f"quality eval: means within {eval_diff:.3e} of the flagship's "
-            f"tracking at step {QUALITY_EVAL_AT[-1]} (the same nets and "
-            f"points); {timed_diff:.3e} from its timed block (points + "
-            f"1e-9)")
-        if eval_diff > QUALITY_TOL:
-            raise AssertionError(f"quality eval: means differ from the "
-                                 f"flagship's by {eval_diff}")
+    ev = run("eval", eval_checkpoint_track.main,
+             ["--coord", coord, "--rot", rot, "--trajs", str(B),
+              "--frames", str(T), *QUALITY_NETS])
+    got = ev["variants"][""]
+    eval_diff = max(abs(got[part][k] - last[part][k])
+                    for part in ("frame1", "full") for k in last[part])
+    timed_diff = max(abs(got["full"][k] - report["tracking"]["tracked"][k])
+                     for k in got["full"])
+    log(f"quality eval: means within {eval_diff:.3e} of the flagship's "
+        f"tracking at step {QUALITY_EVAL_AT[-1]} (the same nets and "
+        f"points); {timed_diff:.3e} from its timed block (points + "
+        f"1e-9)")
+    if eval_diff > QUALITY_TOL:
+        raise AssertionError(f"quality eval: means differ from the "
+                             f"flagship's by {eval_diff}")
 
-        basin = run("basin", train_basin_head.main,
-                    ["--coord", coord, "--out", basin_dir, "--steps",
-                     str(QUALITY_BASIN_STEPS), "--batch",
-                     str(QUALITY_BASIN_BATCH), *QUALITY_NETS])
-        payload = checkpoint.load_checkpoint(basin["checkpoint"])
-        if not {"basin_fc1", "basin_fc2"} <= set(payload["params"]):
-            raise AssertionError("quality basin: the checkpoint has no "
-                                 "basin_fc1/2")
-        basin_cfg = train_basin_head.config(basin_args)
-        plain_cfg = basin_cfg.replace(network=dataclasses.replace(
-            basin_cfg.network, basin_head=False))
-        with torch.no_grad():
-            head_net = load_flax_variables(
-                CoordNet(basin_cfg, device=dev),
-                {"params": payload["params"],
-                 "batch_stats": payload["batch_stats"]})
-            base_net = load_flax_variables(
-                CoordNet(plain_cfg, device=dev),
-                checkpoint.load_track_variables(coord, rot)[0])
-            canon = points[0, :4]
-            a, b = head_net(canon), base_net(canon)
-        if not all(torch.equal(a[k], b[k]) for k in ("seg", "nocs")):
-            raise AssertionError("quality basin: seg / NPCS differ from the "
-                                 "input CoordNet's")
-        sep = basin["sep"]
-        log(f"quality basin: seg and NPCS equal to the input net's bit for "
-            f"bit; held-out mean logit by theta {sep}")
+    basin = run("basin", train_basin_head.main,
+                ["--coord", coord, "--out", basin_dir, "--steps",
+                 str(QUALITY_BASIN_STEPS), "--batch",
+                 str(QUALITY_BASIN_BATCH), *QUALITY_NETS])
+    payload = checkpoint.load_checkpoint(basin["checkpoint"])
+    if not {"basin_fc1", "basin_fc2"} <= set(payload["params"]):
+        raise AssertionError("quality basin: the checkpoint has no "
+                             "basin_fc1/2")
+    basin_cfg = train_basin_head.config(basin_args)
+    plain_cfg = basin_cfg.replace(network=dataclasses.replace(
+        basin_cfg.network, basin_head=False))
+    with torch.no_grad():
+        head_net = load_flax_variables(
+            CoordNet(basin_cfg, device=dev),
+            {"params": payload["params"],
+             "batch_stats": payload["batch_stats"]})
+        base_net = load_flax_variables(
+            CoordNet(plain_cfg, device=dev),
+            checkpoint.load_track_variables(coord, rot)[0])
+        canon = points[0, :4]
+        a, b = head_net(canon), base_net(canon)
+    if not all(torch.equal(a[k], b[k]) for k in ("seg", "nocs")):
+        raise AssertionError("quality basin: seg / NPCS differ from the "
+                             "input CoordNet's")
+    sep = basin["sep"]
+    log(f"quality basin: seg and NPCS equal to the input net's bit for "
+        f"bit; held-out mean logit by theta {sep}")
 
-        probe = run("probe", gtless_init_probe.main,
-                    ["--coord", coord, "--rot", rot, *QUALITY_NETS,
-                     "--thetas", ",".join(map(str, QUALITY_THETAS)),
-                     "--init_search", str(QUALITY_SEARCH)])
-        tags = [r["tag"] for r in probe["rows"]]
-        want_tags = ["gt-init", "cloud-init/raw-draw"] + [
-            f"cloud-init/theta={t:g}" for t in map(float, QUALITY_THETAS)]
-        gt_row = probe["rows"][0]
-        if tags != want_tags or not np.isfinite(
-                list(gt_row["frame1"].values())
-                + list(gt_row["full"].values())).all():
-            raise AssertionError(f"quality probe: rows {tags}, gt-init "
-                                 f"{gt_row}")
+    probe = run("probe", gtless_init_probe.main,
+                ["--coord", coord, "--rot", rot, *QUALITY_NETS,
+                 "--thetas", ",".join(map(str, QUALITY_THETAS)),
+                 "--init_search", str(QUALITY_SEARCH)])
+    tags = [r["tag"] for r in probe["rows"]]
+    want_tags = ["gt-init", "cloud-init/raw-draw"] + [
+        f"cloud-init/theta={t:g}" for t in map(float, QUALITY_THETAS)]
+    gt_row = probe["rows"][0]
+    if tags != want_tags or not np.isfinite(
+            list(gt_row["frame1"].values())
+            + list(gt_row["full"].values())).all():
+        raise AssertionError(f"quality probe: rows {tags}, gt-init "
+                             f"{gt_row}")
 
     for name, launches in out["launches"].items():
         if launches != want[name]:
             raise AssertionError(f"quality {name}: FPS launches {launches}, "
                                  f"expected {want[name]}")
-    by_shape = {}
-    for (n, npoint), clouds in calls.items():
-        for xyz in clouds:
-            by_shape.setdefault((xyz.shape[0], n, npoint), []).append(xyz)
-    del calls
-    for (b, n, npoint), clouds in sorted(by_shape.items()):
-        check_video(fps, kernels, (fps.route(b, n),), clouds, npoint,
-                    "phase", len(clouds), QUALITY_WHERE, path="quality",
-                    unit="call")
-    del by_shape
-    torch.cuda.empty_cache()
+    check_recorded(kernels, calls, QUALITY_WHERE, "quality")
     out.update(
         steps=QUALITY_STEPS, eval_at=list(QUALITY_EVAL_AT),
         device=report["tracking"]["device"],
@@ -3687,6 +3721,168 @@ def phase_quality(kernels: dict) -> dict:
                     for net, v in out["flagship"].items())
         + f"; tracking {report['tracking']['fps_per_chip']} frames/s at B="
         f"{B}; on {report['tracking']['device']}")
+    return out
+
+
+# the scripts phase: the last three scripts' CLIs on the card (the smoke at
+# its defaults, the pwm ablation cut to a few steps at full width, the diag
+# at its defaults on the quality phase's CoordNet)
+SCRIPTS_PWM_STEPS = 100
+SCRIPTS_PWM = (128, 384)
+SCRIPTS_DIAG_NETS = ["--dtype", "float32", "--norm", "bn"]
+SCRIPTS_TOL = 1e-4
+SCRIPTS_WHERE = "the scripts phase's FPS inputs, ms a call"
+_PWM_STEP_LINE = re.compile(r"^\[pwm=(\d+)\] step (\d+): total=(\S+) ")
+
+
+def _scripts_launches(smoke_cfgs: dict, smoke_args, pwm_cfgs: list,
+                      pwm_steps: int, diag_cfg, diag_args) -> dict:
+    """FPS launches of each script's CLI as `route` predicts them: the
+    smoke's train steps (both nets, batch 8) and its two tracked runs
+    (trained, untrained), the pwm ablation's train steps (a leg a pwm
+    value), the diag's passes (B x K x J clouds through CoordNet in chunks
+    of INIT_SEARCH_CHUNK)."""
+    from collections import Counter
+    from captra_tpu_torch.cli import smoke_train_track as sm
+    from captra_tpu_torch.tracking.tracker import INIT_SEARCH_CHUNK
+    smoke = Counter()
+    for net in sm.NETS:
+        for k, v in train_launches(smoke_cfgs[net], sm.BATCH).items():
+            smoke[k] += v * smoke_args.steps
+    for k, v in predicted_launches(smoke_cfgs[sm.TRACK_NET],
+                                   sm.TRACK_TRAJS).items():
+        smoke[k] += v * (sm.TRACK_FRAMES - 1) * 2
+    pwm = Counter()
+    for cfg in pwm_cfgs:
+        for k, v in train_launches(cfg, cfg.batch_size).items():
+            pwm[k] += v * pwm_steps
+    M = diag_args.trajs * len(diag_args.offsets.split(",")) \
+        * diag_args.perturb_j
+    diag = Counter()
+    for c0 in range(0, M, INIT_SEARCH_CHUNK):
+        m = min(INIT_SEARCH_CHUNK, M - c0)
+        for n in (diag_cfg.num_points, diag_cfg.pointnet.sa1.npoint):
+            diag[fps_kernel(m, n)] += diag_args.steps
+    return {"smoke": dict(smoke), "pwm": dict(pwm), "diag": dict(diag)}
+
+
+def phase_scripts(kernels: dict, coord_ckpt: str) -> dict:
+    """The last three scripts' CLIs on the card, the counters zeroed just
+    before each and read just after: `cli.smoke_train_track` at its
+    defaults (300 steps a net, 256 points; its own gate), `cli.
+    sym_pwm_ablation --steps SCRIPTS_PWM_STEPS --pwm 128,384` at full width
+    (batch 12 x 4096, GN, bfloat16) and `cli.init_search_scorer_diag` at
+    its defaults (8 x 8 x 4 candidates, 2 passes) with --dtype float32
+    --norm bn on the quality phase's CoordNet `coord_ckpt`.  Gates: the
+    smoke's trained tdiff below the frozen init's, its trained nets'
+    tracked poses within SCRIPTS_TOL of a twin with the plain FPS on the
+    card; every pwm leg's printed losses finite and its last printed total
+    below its step-0 total; every diag row and pick present and finite and
+    its fitted rotations within SCRIPTS_TOL of a plain-FPS twin; FPS
+    launches as `route` predicts; each kernel equal to the plain FPS on
+    every FPS input of the phase."""
+    from captra_tpu_torch.cli import init_search_scorer_diag as diag
+    from captra_tpu_torch.cli import smoke_train_track as sm
+    from captra_tpu_torch.cli import sym_pwm_ablation as pwm
+    from captra_tpu_torch.eval import quality
+
+    dev = torch.device("cuda")
+    out = {"seconds": {}, "launches": {}}
+    calls = {}
+
+    def run(name, fn, *args, **kwargs):
+        return counted_run(out, calls, "scripts", name, fn, *args, **kwargs)
+
+    smoke_args = sm.parse([])
+    pwm_argv = ["--steps", str(SCRIPTS_PWM_STEPS),
+                "--pwm", ",".join(map(str, SCRIPTS_PWM))]
+    pwm_args = pwm.parse(pwm_argv)
+    diag_argv = ["--coord", coord_ckpt, "--rot", coord_ckpt,
+                 *SCRIPTS_DIAG_NETS]
+    diag_args = diag.parse(diag_argv)
+    smoke_cfgs = sm.configs(smoke_args.num_points)
+    want = _scripts_launches(
+        smoke_cfgs, smoke_args,
+        [pwm.config(pwm_args, v) for v in pwm.pwm_values(pwm_args)],
+        SCRIPTS_PWM_STEPS, diag.config(diag_args), diag_args)
+
+    # the smoke: the CLI's body, then its gate
+    _, (smoke, legs) = run("smoke", sm.run, smoke_args, dev)
+    try:
+        sm.check(smoke)
+    except SystemExit as e:
+        raise AssertionError(f"scripts smoke: {e}") from None
+    cfg = smoke_cfgs[sm.TRACK_NET]
+    nets = quality.nets_of(
+        cfg, legs["canon_coord"]["trained"].module.state_dict(),
+        legs["rot"]["trained"].module.state_dict(), dev)
+    data = sm.track_data(cfg, smoke_args.num_points)
+    init, points = data["pose"][0].to(dev), data["points"]
+    pose = quality.track(cfg, *nets, init, points, dev)
+    with plain_fps_on_card():
+        plain = quality.track(cfg, *nets, init, points, dev)
+    smoke_twin = _max_pose_diff(pose, plain)
+    log(f"scripts smoke: the trained nets' tracked poses against the plain "
+        f"FPS's on the card: max |diff| {smoke_twin}")
+    if not (max(smoke_twin.values()) <= SCRIPTS_TOL and all(
+            bool(torch.isfinite(getattr(pose, f)).all())
+            for f in ("rotation", "translation", "scale"))):
+        raise AssertionError(f"scripts smoke: tracked poses differ from the "
+                             f"plain FPS's by {smoke_twin}")
+    del legs, nets, pose, plain
+
+    # the pwm ablation, from its printed lines and its JSON
+    text, results = run("pwm", pwm.main, pwm_argv, device=dev)
+    totals = {}
+    for line in text.splitlines():
+        m = _PWM_STEP_LINE.match(line)
+        if m:
+            totals.setdefault(int(m.group(1)), []).append(
+                (int(m.group(2)), float(m.group(3))))
+    for v in SCRIPTS_PWM:
+        printed = totals.get(v, [])
+        if (sorted(results) != list(SCRIPTS_PWM) or not np.isfinite(
+                list(results[v].values())).all()
+                or [s for s, _ in printed] != [0, SCRIPTS_PWM_STEPS - 1]
+                or not printed[-1][1] < printed[0][1]):
+            raise AssertionError(f"scripts pwm={v}: printed totals {printed}"
+                                 f", last losses {results.get(v)}")
+    log("scripts pwm: total loss by pwm_num, step 0 -> last: "
+        + ", ".join(f"{v}: {p[0][1]} -> {p[-1][1]}"
+                    for v, p in totals.items()))
+
+    # the diag on the quality phase's CoordNet, and its plain-FPS twin
+    _, report = run("diag", diag.main, diag_argv, device=dev)
+    offsets = [float(x) for x in diag_args.offsets.split(",")]
+    rows_ok = [r["offset"] for r in report["rows"]] == offsets and all(
+        np.isfinite([r[c] for c in diag.COLUMNS]).all()
+        for r in report["rows"])
+    picks_ok = sorted(report["picks"]) == sorted(
+        n for n, _ in diag.SCORERS) and all(
+        len(p) == diag_args.trajs for p in report["picks"].values())
+    if not (rows_ok and picks_ok):
+        raise AssertionError(f"scripts diag: rows {report['rows']}, picks "
+                             f"{report['picks']}")
+    with plain_fps_on_card():
+        _, twin, _ = _printed(diag.main, diag_argv, device=dev)
+    diag_twin = float(np.abs(report["fitted"] - twin["fitted"]).max())
+    log(f"scripts diag: fitted rotations against the plain FPS's on the "
+        f"card: max |diff| {diag_twin}")
+    if not diag_twin <= SCRIPTS_TOL:
+        raise AssertionError(f"scripts diag: fitted rotations differ from "
+                             f"the plain FPS's by {diag_twin}")
+
+    for name, launches in out["launches"].items():
+        if launches != want[name]:
+            raise AssertionError(f"scripts {name}: FPS launches {launches}, "
+                                 f"expected {want[name]}")
+    check_recorded(kernels, calls, SCRIPTS_WHERE, "scripts")
+    out.update(
+        smoke={k: smoke[k] for k in (*sm.ROWS, "train", "device", "steps")},
+        smoke_plain_fps_diff=smoke_twin, pwm=results,
+        pwm_printed_totals=totals, diag_rows=report["rows"],
+        diag_picks=report["picks"], diag_plain_fps_diff=diag_twin,
+        predicted_launches=want)
     return out
 
 
@@ -3736,8 +3932,12 @@ def main() -> int:
         lap("multi")
         vis = phase_vis(data, data_tmp)
         lap("vis")
-    qual = phase_quality(kernels=kernels)
-    lap("quality")
+    with tempfile.TemporaryDirectory(prefix="captra_quality_") as qtmp:
+        qual = phase_quality(kernels=kernels, tmp=qtmp)
+        lap("quality")
+        scripts = phase_scripts(kernels, os.path.join(
+            qtmp, "flagship", "canon_coord", "ckpt", "model_0000"))
+        lap("scripts")
 
     line = []
     for name, cases in kernels.items():
@@ -3770,7 +3970,9 @@ def main() -> int:
                        lr.get(name, 0) for lr in v["launches_by_rank"])
                       for r, v in multi["tracks"].items()},
                    **{f"quality_{r}": v.get(name, 0)
-                      for r, v in qual["launches"].items()}}
+                      for r, v in qual["launches"].items()},
+                   **{f"scripts_{r}": v.get(name, 0)
+                      for r, v in scripts["launches"].items()}}
         line.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
@@ -3794,6 +3996,7 @@ def main() -> int:
     log(json.dumps({"multi": multi}))
     log(json.dumps({"vis": vis}))
     log(json.dumps({"quality": qual}))
+    log(json.dumps({"scripts": scripts}))
     log(json.dumps({"seconds": seconds}))
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,10 @@ from captra_tpu_torch.cli import evaluate as evaluate_cli
 from captra_tpu_torch.cli import finetune as finetune_cli
 from captra_tpu_torch.cli import flagship_demo as flagship_cli
 from captra_tpu_torch.cli import gtless_init_probe as probe_cli
+from captra_tpu_torch.cli import init_search_scorer_diag as diag_cli
 from captra_tpu_torch.cli import rollout_finetune as rollout_cli
+from captra_tpu_torch.cli import smoke_train_track as smoke_cli
+from captra_tpu_torch.cli import sym_pwm_ablation as pwm_cli
 from captra_tpu_torch.cli import track as track_cli
 from captra_tpu_torch.cli import train as train_cli
 from captra_tpu_torch.cli import train_basin_head as basin_cli
@@ -190,6 +193,10 @@ def _entry_points(cfg):
         "cli.train_basin_head.main": lambda: basin_cli.main(
             ["--coord", "c", "--out", "o"]),
         "parallel.mesh.launch": lambda: mesh.launch(print, 2),
+        "cli.sym_pwm_ablation.main": lambda: pwm_cli.main([]),
+        "cli.smoke_train_track.main": lambda: smoke_cli.main([]),
+        "cli.init_search_scorer_diag.main": lambda: diag_cli.main(
+            ["--coord", "c", "--rot", "r"]),
     }
 
 
