@@ -31,6 +31,11 @@ key), after the crop's shift.  The JAX step derives them from
 `PRNGKey(13)`, folded with frame["key"] when the frame has one
 (tracker.py:442-446).
 
+The step opens the tracer's spans (`utils/profiling.annotate`, recorded
+only while a profiler runs): `track.step` around it, and inside it
+`track.crop` (OTF), then a pass's `track.coordnet`, `track.rotnet` and
+`track.fit` around the nets' calls and the pose fit.
+
 Frame 0: `init_pose_from_gt` (noise draws explicit, as in
 `pose.part_dof.add_noise_to_pose`), or for GT-less captures
 `init_pose_from_cloud` and the orientation search
@@ -62,6 +67,7 @@ from captra_tpu_torch.pose.part_dof import (
 from captra_tpu_torch.pose.pose_fit import filter_valid, labels_to_part_mask
 from captra_tpu_torch.pose.procrustes import gumbel_or_draw, similarity_fit
 from captra_tpu_torch.utils.precision import f32_precision
+from captra_tpu_torch.utils.profiling import annotate
 
 
 @dataclass
@@ -186,7 +192,9 @@ def make_track_step(cfg: Config, coord_fn: Callable, rot_fn: Callable,
         root_pose = Pose(rotation=pose.rotation[:, root],
                          translation=pose.translation[:, root],
                          scale=pose.scale[:, root])
-        coord_out = coord_fn(canonicalize(points, points_mean, root_pose))
+        canon = canonicalize(points, points_mean, root_pose)
+        with annotate("track.coordnet"):
+            coord_out = coord_fn(canon)
         seg, nocs = coord_out["seg"], coord_out["nocs"]
         pred_labels = torch.argmax(seg, dim=-1)              # [B, N]
         # gt_label / nocs2d_label: the frame's mask-derived labels drive the
@@ -198,62 +206,69 @@ def make_track_step(cfg: Config, coord_fn: Callable, rot_fn: Callable,
             labels = pred_labels
 
         # RotNet in each part's previous frame
-        rot_out = rot_fn(canonicalize_per_part(points, points_mean, pose),
-                         labels)
-        if track.conf_weighted_delta:
-            # the per-point reps weighted by each point's seg confidence for
-            # its label; a part of zero total weight keeps the net's rtvec
-            prob = torch.gather(seg, -1, labels[..., None])[..., 0]  # [B, N]
-            w = labels_to_part_mask(labels, P) * prob[:, None]  # [B, P, N]
-            w_sum = torch.sum(w, dim=-1, keepdim=True)
-            rt = torch.sum(rot_out["point_rtvec"] * w[..., None], dim=-2) \
-                / torch.clamp(w_sum, min=1e-6)
-            rot_out = dict(rot_out,
-                           rtvec=torch.where(w_sum > 0, rt, rot_out["rtvec"]))
-        delta, _ = decode_rotation(rot_out, obj.sym)
-        if invert_delta:
-            delta = delta.transpose(-1, -2)
+        canon_parts = canonicalize_per_part(points, points_mean, pose)
+        with annotate("track.rotnet"):
+            rot_out = rot_fn(canon_parts, labels)
+        # rotation decode, composition, the s/t fit and validity
+        with annotate("track.fit"):
+            if track.conf_weighted_delta:
+                # the per-point reps weighted by each point's seg confidence
+                # for its label; a part of zero total weight keeps the net's
+                # rtvec
+                prob = torch.gather(seg, -1, labels[..., None])[..., 0]
+                w = labels_to_part_mask(labels, P) * prob[:, None]  # [B,P,N]
+                w_sum = torch.sum(w, dim=-1, keepdim=True)
+                rt = torch.sum(rot_out["point_rtvec"] * w[..., None],
+                               dim=-2) / torch.clamp(w_sum, min=1e-6)
+                rot_out = dict(rot_out, rtvec=torch.where(
+                    w_sum > 0, rt, rot_out["rtvec"]))
+            delta, _ = decode_rotation(rot_out, obj.sym)
+            if invert_delta:
+                delta = delta.transpose(-1, -2)
 
-        B, N = labels.shape
-        pred_npcs = nocs.reshape(B, N, P, 3).movedim(2, 1)   # [B, P, N, 3]
-        new_pose = compose_track_pose(
-            pose, delta, labels, pred_npcs, points, points_mean,
-            num_parts=P, sym=obj.sym, scale_clamp=track.scale_clamp,
-            rot_fit=track.rot_fit, rot_fit_alpha=track.rot_fit_alpha,
-            delta_gain=track.delta_gain, fit_ransac=track.fit_ransac,
-            fit_ransac_th=track.fit_ransac_th, gumbel_rot=draws[0],
-            gumbel_fit=draws[1])
+            B, N = labels.shape
+            pred_npcs = nocs.reshape(B, N, P, 3).movedim(2, 1)  # [B,P,N,3]
+            new_pose = compose_track_pose(
+                pose, delta, labels, pred_npcs, points, points_mean,
+                num_parts=P, sym=obj.sym, scale_clamp=track.scale_clamp,
+                rot_fit=track.rot_fit, rot_fit_alpha=track.rot_fit_alpha,
+                delta_gain=track.delta_gain, fit_ransac=track.fit_ransac,
+                fit_ransac_th=track.fit_ransac_th, gumbel_rot=draws[0],
+                gumbel_fit=draws[1])
         return new_pose, TrackAux(pose=new_pose, pred_labels=pred_labels,
                                   seg=seg, nocs=nocs)
 
     @torch.no_grad()
     def step(pose: Pose, frame: dict):
-        frame_ok = None
-        frame_labels = _maybe_on(frame.get("labels"), device)
-        if track.nocs_otf:
-            points_raw, frame_labels, frame_ok = otf_points(pose, frame)
-        else:
-            points_raw = _on(frame["points"], device)
-        points_mean = torch.mean(points_raw, dim=1)          # [B, 3]
-        points = points_raw - points_mean[:, None]
-        B, N = points.shape[:2]
-        draws = ransac_draws(frame, B, N)
+        with annotate("track.step"):
+            frame_ok = None
+            frame_labels = _maybe_on(frame.get("labels"), device)
+            if track.nocs_otf:
+                with annotate("track.crop"):
+                    points_raw, frame_labels, frame_ok = otf_points(pose,
+                                                                    frame)
+            else:
+                points_raw = _on(frame["points"], device)
+            points_mean = torch.mean(points_raw, dim=1)          # [B, 3]
+            points = points_raw - points_mean[:, None]
+            B, N = points.shape[:2]
+            draws = ransac_draws(frame, B, N)
 
-        new_pose, aux = predict_compose(pose, points, points_mean,
-                                        frame_labels, draws)
-        # refinement passes from the just-fitted pose: "forward" composes
-        # the new delta, "debias" its inverse (tracker.py:519-534)
-        for _ in range(max(track.refine_iters, 1) - 1):
-            new_pose, aux = predict_compose(
-                new_pose, points, points_mean, frame_labels, draws,
-                invert_delta=track.refine_mode == "debias")
-        if frame_ok is not None:
-            # a frame with no valid depth carries the previous pose through
-            # (tracker.py:535-545)
-            new_pose = _where_pose(frame_ok, new_pose, pose)
-            aux = TrackAux(pose=new_pose, pred_labels=aux.pred_labels,
-                           seg=aux.seg, nocs=aux.nocs)
-        return new_pose, aux
+            new_pose, aux = predict_compose(pose, points, points_mean,
+                                            frame_labels, draws)
+            # refinement passes from the just-fitted pose: "forward" composes
+            # the new delta, "debias" its inverse (tracker.py:519-534)
+            for _ in range(max(track.refine_iters, 1) - 1):
+                new_pose, aux = predict_compose(
+                    new_pose, points, points_mean, frame_labels, draws,
+                    invert_delta=track.refine_mode == "debias")
+            if frame_ok is not None:
+                # a frame with no valid depth carries the previous pose
+                # through (tracker.py:535-545)
+                new_pose = _where_pose(frame_ok, new_pose, pose)
+                aux = TrackAux(pose=new_pose, pred_labels=aux.pred_labels,
+                               seg=aux.seg, nocs=aux.nocs)
+            return new_pose, aux
 
     if track.motion_model != "const_vel":
         return step

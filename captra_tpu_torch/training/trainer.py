@@ -29,7 +29,10 @@ the symmetric NOCS loss's sample come from `draws` (what
 `captra_tpu_torch.pose.part_dof.draw_pose_noise` and
 `models.losses.draw_pwm_indices` give) or from a `torch.Generator`.
 `train_step` updates the state in place and returns it; its losses and
-metrics stay on the device.
+metrics stay on the device.  It opens the tracer's spans
+(`utils/profiling.annotate`, recorded only while a profiler runs):
+`train.step` around it, `train.forward` (forward and losses),
+`train.backward` and `train.optimizer` inside it.
 
 Data parallelism (`Trainer(..., dp=)`, a `parallel.mesh.DataParallel`):
 each rank steps on its shard of the global batch.  Its forward runs under
@@ -67,6 +70,7 @@ from captra_tpu_torch.pose.part_dof import (
     eval_part_full, merge_delta_pose, tree_root,
 )
 from captra_tpu_torch.pose.pose_fit import labels_to_part_mask
+from captra_tpu_torch.utils.profiling import annotate
 
 # Adam's constants (optax.scale_by_adam defaults) and SGD's trace decay
 B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -456,25 +460,30 @@ class Trainer:
         """One update of `state` (in place) on `batch`: returns (state, loss
         dict with "total_loss", metrics), 0-d tensors on the device.  The
         draws are `draws`, else drawn from `generator`."""
-        module = state.module
-        set_bn_momentum(module, self.bn_momentum)
-        module.train()
-        batch = to_device(batch, self.device)
-        state.grads.zero_()
-        with mesh.active(self.dp):
-            total, (loss_dict, metrics) = self.loss_fn(
-                self.cfg, module, batch, draws=draws, generator=generator)
-            total.backward()
-        self._check_grads(state)
-        if self.dp is not None:
-            self.dp.all_reduce_(state.grads)
-        state.opt_state = self.tx.step(state.opt_state, state.params,
-                                       state.grads)
-        state.step += 1
-        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
-        loss_dict["total_loss"] = total.detach()
-        loss_dict, metrics = self._global(loss_dict, metrics)
-        return state, loss_dict, metrics
+        with annotate("train.step"):
+            module = state.module
+            set_bn_momentum(module, self.bn_momentum)
+            module.train()
+            batch = to_device(batch, self.device)
+            state.grads.zero_()
+            with mesh.active(self.dp):
+                with annotate("train.forward"):
+                    total, (loss_dict, metrics) = self.loss_fn(
+                        self.cfg, module, batch, draws=draws,
+                        generator=generator)
+                with annotate("train.backward"):
+                    total.backward()
+            self._check_grads(state)
+            if self.dp is not None:
+                self.dp.all_reduce_(state.grads)
+            with annotate("train.optimizer"):
+                state.opt_state = self.tx.step(state.opt_state, state.params,
+                                               state.grads)
+            state.step += 1
+            loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+            loss_dict["total_loss"] = total.detach()
+            loss_dict, metrics = self._global(loss_dict, metrics)
+            return state, loss_dict, metrics
 
     def eval_step(self, state: TrainState, batch: dict,
                   draws: dict | None = None,

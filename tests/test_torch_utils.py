@@ -6,8 +6,8 @@ Tolerances: the dict helpers, `get_ith_from_batch` and `tree_children`
 equal; `knn` indices equal on tie-free clouds, distances within 1e-6;
 `convert_pred_rtvec_to_matrix` within 1e-6.  The profiler helpers run on
 the CPU here: an `annotate` span shows in the trace's averages and in the
-Chrome trace file `trace` writes, and `block_time` calls its function
-`warmup + iters` times."""
+Chrome trace file `trace` writes (the tracer's spans in the program's steps
+are `tests/test_torch_tracing.py`'s)."""
 import json
 import os
 
@@ -86,18 +86,6 @@ def test_annotate_spans_show_in_a_trace(tmp_path):
     with open(tmp_path / files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "captra_span" for e in events)
-
-
-def test_block_time_calls_warmup_plus_iters():
-    calls = []
-
-    def fn(a, scale=1.0):
-        calls.append(a)
-        return {"out": [torch.ones(2) * scale]}
-
-    seconds = profiling.block_time(fn, 3, iters=4, warmup=2, scale=2.0)
-    assert calls == [3] * 6 and seconds >= 0.0
-    assert profiling.block_time(lambda: 1, iters=2, warmup=0) >= 0.0
 
 
 @pytest.mark.parametrize("k", [1, 4, 16])
