@@ -6,7 +6,13 @@ float32 throughout, so FPS, ball query and 3-NN see the float32 geometry
 and pick the same indices in every dtype.  Where float32 xyz or 3-NN
 weights meet features of the compute dtype (`torch.cat`, the
 interpolation's product), the result is float32, as `jnp` promotes; the
-next PointMLP casts it back."""
+next PointMLP casts it back.
+
+A set-abstraction scale in eval mode with BatchNorm, float32 and no
+gradient wanted takes `ops.sa_mlp.sa_scale` (on CUDA one hand-written
+kernel: gather, MLP and max-pool with no grouped activation in device
+memory; on the CPU its plain twin, today's arithmetic); any other scale
+runs the module chain (`SetAbstractionMsg.fused`)."""
 from __future__ import annotations
 
 import torch
@@ -14,7 +20,9 @@ from torch import nn
 
 from captra_tpu_torch import ops
 from captra_tpu_torch.config.schema import PointNetCfg, SAMsgCfg
-from captra_tpu_torch.models.blocks import PointMLP
+from captra_tpu_torch.models.blocks import BatchNorm, PointMLP
+from captra_tpu_torch.ops import sa_mlp
+from captra_tpu_torch.utils import profiling
 
 
 class SetAbstractionMsg(nn.Module):
@@ -33,18 +41,75 @@ class SetAbstractionMsg(nn.Module):
                 last_norm=True, bn_momentum=bn_momentum, dtype=dtype))
         self.out_dim = sum(m[-1] for m in cfg.mlp_list)
 
+    def fused(self, xyz, feats) -> bool:
+        """Whether `forward` takes the fused scales (`sa_mlp.sa_scale`), by
+        what the module sees: no gradient wanted, float32 inputs on the CPU
+        or CUDA, and every scale's MLP in eval mode with BatchNorm and a
+        float32 compute dtype.  Anything else (training, GroupNorm,
+        bfloat16 or float16, autograd) keeps the module chain.  A shape the
+        kernel cannot hold raises there (`sa_mlp.sa_mlp_cuda`)."""
+        if torch.is_grad_enabled() or xyz.device.type not in ("cpu", "cuda"):
+            return False
+        if xyz.dtype != torch.float32 or (
+                feats is not None and feats.dtype != torch.float32):
+            return False
+        for i in range(len(self.cfg.nsample_list)):
+            mlp = getattr(self, f"scale_{i}")
+            bn = all(isinstance(getattr(mlp, f"norm_{j}", None), BatchNorm)
+                     for j in range(mlp.num_layers))
+            if mlp.training or mlp.dtype not in (None, torch.float32) \
+                    or not bn:
+                return False
+        return True
+
     def forward(self, xyz, feats):
         # FPS picks indices and takes no gradient
         fps_idx = ops.farthest_point_sample(xyz.detach(), self.cfg.npoint,
                                             mode=self.fps_mode)
         new_xyz = ops.gather_xyz(xyz, fps_idx)  # [B, S, 3]
+        if self.fused(xyz, feats):
+            return new_xyz, self._fused_scales(xyz, new_xyz, feats)
         outs = []
         for i, (radius, k) in enumerate(zip(self.cfg.radius_list,
                                             self.cfg.nsample_list)):
+            profiling.count("sa_scales")
             g = ops.ball_group(radius, k, xyz, new_xyz, feats)
             g = getattr(self, f"scale_{i}")(g)
             outs.append(torch.amax(g, dim=2))  # [B, S, C]
         return new_xyz, torch.cat(outs, dim=-1)
+
+    def _fused_scales(self, xyz, new_xyz, feats):
+        """Every scale through `sa_mlp.sa_scale`, each writing its columns
+        of one [B, S, out_dim] tensor (no concatenation).  The ball query
+        takes xyz in its own layout, as the module chain does: the layout
+        steers the distance product's rounding, hence the ball's edge."""
+        rows = xyz.contiguous()
+        feats = None if feats is None else feats.contiguous()
+        B, S = new_xyz.shape[:2]
+        out = xyz.new_empty((B, S, self.out_dim))
+        offset = 0
+        for i, (radius, k) in enumerate(zip(self.cfg.radius_list,
+                                            self.cfg.nsample_list)):
+            profiling.count("sa_scales")
+            idx = ops.ball_query(radius, k, xyz, new_xyz)
+            mlp = getattr(self, f"scale_{i}")
+            sa_mlp.sa_scale(rows, new_xyz, feats, idx, scale_layers(mlp),
+                            out, offset)
+            offset += mlp.out_dim
+        return out
+
+
+def scale_layers(mlp: PointMLP) -> list:
+    """A BatchNorm `PointMLP`'s layers as `sa_mlp.Layer`s: each Linear's
+    weight and bias with its BatchNorm's weight, bias, running statistics
+    and eps (the tensors themselves, not copies)."""
+    layers = []
+    for j in range(mlp.num_layers):
+        dense, norm = getattr(mlp, f"dense_{j}"), getattr(mlp, f"norm_{j}")
+        layers.append(sa_mlp.Layer(dense.weight, dense.bias, norm.weight,
+                                   norm.bias, norm.running_mean,
+                                   norm.running_var, norm.eps))
+    return layers
 
 
 class SetAbstractionAll(nn.Module):

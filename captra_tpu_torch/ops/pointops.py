@@ -163,6 +163,15 @@ def ball_group(radius: float, nsample: int, xyz: torch.Tensor,
                new_xyz: torch.Tensor, feats: torch.Tensor | None = None
                ) -> torch.Tensor:
     """Ball query + neighborhood grouping -> [B, S, nsample, D+3] of
+    (features..., xyz - query_center) (`group_ball`)."""
+    return group_ball(ball_query(radius, nsample, xyz, new_xyz), xyz,
+                      new_xyz, feats)
+
+
+def group_ball(idx: torch.Tensor, xyz: torch.Tensor, new_xyz: torch.Tensor,
+               feats: torch.Tensor | None = None) -> torch.Tensor:
+    """The grouping of `ball_query`'s idx [B, S, K]: xyz [B, N, 3], centres
+    new_xyz [B, S, 3], feats [B, N, D] or None -> [B, S, K, D+3] of
     (features..., xyz - query_center): features FIRST, then the relative
     xyz (the JAX op's exact route, pointops.py:290-301).
 
@@ -170,15 +179,13 @@ def ball_group(radius: float, nsample: int, xyz: torch.Tensor,
     taken in float32 and cast to the features' dtype, the values the JAX
     op's float32 block takes once the next layer casts it (its bucket
     route, pointops.py:317-330, casts the same way)."""
-    B, _, _ = xyz.shape
-    S = new_xyz.shape[1]
-    idx = ball_query(radius, nsample, xyz, new_xyz)
-    flat = idx.reshape(B, S * nsample, 1)
+    B, S, K = idx.shape
+    flat = idx.reshape(B, S * K, 1)
 
     def group(values):
         C = values.shape[-1]
-        return torch.gather(values, 1, flat.expand(B, S * nsample, C)
-                            ).reshape(B, S, nsample, C)
+        return torch.gather(values, 1, flat.expand(B, S * K, C)
+                            ).reshape(B, S, K, C)
 
     rel = group(xyz) - new_xyz[:, :, None]
     if feats is None:

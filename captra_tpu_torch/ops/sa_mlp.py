@@ -1,0 +1,268 @@
+"""One set-abstraction scale fused: a hand-written CUDA kernel and its plain
+PyTorch twin.
+
+A scale of `SetAbstractionMsg` (counterpart of the MSG scale in
+`captra_tpu/models/backbone.py`, which has no Pallas kernel) is ball query
+-> grouping -> shared MLP (Linear, eval-mode BatchNorm, ReLU after every
+layer) -> max over the neighbours.  `sa_scale` takes the ball query's
+indices and does the rest:
+
+  sa_mlp_cuda   the kernel of `csrc/sa_mlp.cu`, built at first use: a CTA
+                owns 128 neighbour rows, gathers them, keeps every layer's
+                activations in shared memory and writes only the pooled
+                [B, S, C_out] rows (its note gives the design and bound).
+  sa_mlp_plain  the same function in plain PyTorch: `ops.group_ball`
+                (`ops.ball_group`'s grouping), then `F.linear`,
+                `F.batch_norm` with the running statistics, `F.relu` and
+                `torch.amax`, the calls the module chain makes, so on the
+                CPU it gives today's chain's numbers bit for bit.
+
+`sa_scale` dispatches by device: a CPU tensor takes `sa_mlp_plain`, a CUDA
+tensor launches the kernel or raises; there is no fallback.  It adds to the
+tracer's `sa_fused` counter (`utils/profiling.count`) and the kernel
+wrapper counts its launches in `launch_counts`.  `fits` says whether the
+kernel takes a scale's shape; the kernel's wrapper raises on any other.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Sequence
+
+import torch
+from torch.nn import functional as F
+
+from captra_tpu_torch.ops import cuda_build, pointops
+from captra_tpu_torch.utils import profiling
+
+SOURCE = "sa_mlp.cu"
+# the kernel's tiling (csrc/sa_mlp.cu): neighbour rows a CTA, floats a
+# channel's row in shared memory, channels a staged chunk, the widest
+# chunk of output columns
+ROWS = 128
+STRIDE = ROWS + 4
+DEPTH = 16
+CHUNK = 128
+MAX_LAYERS = 3
+HEADER_FLOATS = ROWS + 4 * ROWS
+# a double-buffered stage of DEPTH channel rows (the gather's, the weights')
+STAGE_FLOATS = 2 * DEPTH * STRIDE
+# the dynamic shared memory a CTA may take on an H100
+SMEM_LIMIT = 232448
+
+launch_counts = {"sa_mlp_cuda": 0}
+_LIB: ctypes.CDLL | None = None
+
+
+class Layer(NamedTuple):
+    """One layer of a scale's MLP: nn.Linear's weight [cout, cin] and bias,
+    then BatchNorm's weight, bias, running mean and variance, and eps."""
+    weight: torch.Tensor
+    bias: torch.Tensor
+    gamma: torch.Tensor
+    beta: torch.Tensor
+    mean: torch.Tensor
+    var: torch.Tensor
+    eps: float
+
+
+class _CLayer(ctypes.Structure):
+    _fields_ = [("w", ctypes.c_void_p), ("b", ctypes.c_void_p),
+                ("gamma", ctypes.c_void_p), ("beta", ctypes.c_void_p),
+                ("mean", ctypes.c_void_p), ("var", ctypes.c_void_p),
+                ("eps", ctypes.c_float), ("cin", ctypes.c_int),
+                ("cout", ctypes.c_int), ("unused", ctypes.c_int)]
+
+
+class _CArgs(ctypes.Structure):
+    _fields_ = [("xyz", ctypes.c_void_p), ("centres", ctypes.c_void_p),
+                ("feats", ctypes.c_void_p), ("idx", ctypes.c_void_p),
+                ("out", ctypes.c_void_p),
+                *[(n, ctypes.c_int) for n in (
+                    "B", "N", "S", "K", "cf", "out_stride", "out_offset",
+                    "layers", "centres_per_tile", "x_floats", "y_floats",
+                    "smem_bytes")],
+                ("layer", _CLayer * MAX_LAYERS)]
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load(SOURCE)
+        for fn in (lib.captra_sa_mlp_rows, lib.captra_sa_mlp_max_layers,
+                   lib.captra_sa_mlp_header_floats,
+                   lib.captra_sa_mlp_stage_floats,
+                   lib.captra_sa_mlp_args_bytes):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+        lib.captra_sa_mlp.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.captra_sa_mlp.restype = ctypes.c_int
+        lib.captra_sa_mlp_error_string.argtypes = [ctypes.c_int]
+        lib.captra_sa_mlp_error_string.restype = ctypes.c_char_p
+        built = (lib.captra_sa_mlp_rows(), lib.captra_sa_mlp_max_layers(),
+                 lib.captra_sa_mlp_header_floats(),
+                 lib.captra_sa_mlp_stage_floats(),
+                 lib.captra_sa_mlp_args_bytes())
+        want = (ROWS, MAX_LAYERS, HEADER_FLOATS, STAGE_FLOATS,
+                ctypes.sizeof(_CArgs))
+        if built != want:
+            raise RuntimeError(f"{SOURCE} was built with (rows, layers, "
+                               f"header, stages, args bytes) {built}, the "
+                               f"wrapper expects {want}")
+        _LIB = lib
+    return _LIB
+
+
+def _padded(c: int) -> int:
+    return -(-c // DEPTH) * DEPTH
+
+
+def layout(K: int, couts: Sequence[int]) -> tuple[int, int, int, int]:
+    """The kernel's shared-memory layout for a scale of K neighbours and
+    layer widths `couts`: (centres a tile, floats of buffer X, floats of
+    buffer Y, bytes in all).  Layer i writes its activations (cout padded
+    to whole chunks of DEPTH, a row of STRIDE floats a channel) into X for
+    even i and Y for odd i; the last layer writes its pool (centres x
+    CHUNK ints) there instead; the first layer's gather stages in Y; after
+    the header, X and Y come the weights' stages."""
+    cpt = ROWS // K
+    x, y = 0, STAGE_FLOATS
+    for i, c in enumerate(couts):
+        last = i == len(couts) - 1
+        size = cpt * CHUNK if last else _padded(c) * STRIDE
+        if i % 2:
+            y = max(y, size)
+        else:
+            x = max(x, size)
+    floats = HEADER_FLOATS + x + y + STAGE_FLOATS
+    return cpt, x, y, 4 * floats
+
+
+def fits(K: int, couts: Sequence[int]) -> bool:
+    """Whether the kernel takes a scale of K neighbours and layer widths
+    `couts`: K at most ROWS (a centre's rows in one CTA), 1 to MAX_LAYERS
+    layers, and the layout within one CTA's shared memory."""
+    if not 1 <= K <= ROWS or not 1 <= len(couts) <= MAX_LAYERS:
+        return False
+    return layout(K, couts)[3] <= SMEM_LIMIT
+
+
+def sa_mlp_plain(xyz: torch.Tensor, new_xyz: torch.Tensor,
+                 feats: torch.Tensor | None, idx: torch.Tensor,
+                 layers: Sequence[Layer]) -> torch.Tensor:
+    """xyz [B, N, 3], centres new_xyz [B, S, 3], feats [B, N, C] or None,
+    ball-query indices idx [B, S, K] -> [B, S, C_out]: the neighbours'
+    (features..., xyz - centre), each layer's Linear, eval BatchNorm and
+    ReLU, the max over K."""
+    x = pointops.group_ball(idx, xyz, new_xyz, feats)
+    for L in layers:
+        x = F.linear(x, L.weight, L.bias)
+        shape = x.shape
+        x = F.batch_norm(x.reshape(-1, shape[-1]), L.mean, L.var, L.gamma,
+                         L.beta, False, 0.0, L.eps).reshape(shape)
+        x = F.relu(x)
+    return torch.amax(x, dim=2)
+
+
+def _check(xyz, new_xyz, feats, idx, layers, out, offset) -> list[int]:
+    """Raise on what the kernel does not take; return the layers' widths."""
+    name = "sa_mlp_cuda"
+    device = xyz.get_device()
+    tensors = [xyz, new_xyz, idx, out, *(t for L in layers for t in L[:6])]
+    if feats is not None:
+        tensors.append(feats)
+    for t in tensors:
+        want = torch.int64 if t is idx else torch.float32
+        if t.dtype is not want:
+            raise TypeError(f"{name}: expected {want}, got {t.dtype}")
+        if t.get_device() != device or not t.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous and "
+                             f"on {xyz.device}, got one on {t.device} with "
+                             f"strides {t.stride()}")
+    B, N, _ = xyz.shape
+    _, S, K = idx.shape
+    cin = 3 if feats is None else feats.shape[-1] + 3
+    if (xyz.dim() != 3 or xyz.shape[-1] != 3 or new_xyz.shape != (B, S, 3)
+            or idx.shape[0] != B
+            or (feats is not None and feats.shape[:2] != (B, N))):
+        fshape = None if feats is None else tuple(feats.shape)
+        raise ValueError(f"{name}: shapes xyz {tuple(xyz.shape)}, new_xyz "
+                         f"{tuple(new_xyz.shape)}, idx {tuple(idx.shape)}, "
+                         f"feats {fshape} do not agree")
+    widths = []
+    for i, L in enumerate(layers):
+        cout = L.weight.shape[0]
+        if L.weight.shape != (cout, cin) or any(
+                t.shape != (cout,) for t in L[1:6]):
+            raise ValueError(f"{name}: layer {i} takes {cin} channels; its "
+                             f"weight is {tuple(L.weight.shape)}")
+        widths.append(cout)
+        cin = cout
+    if (out.dim() != 3 or out.shape[:2] != (B, S)
+            or not 0 <= offset <= out.shape[2] - cin):
+        raise ValueError(f"{name}: out {tuple(out.shape)} has no room for "
+                         f"{cin} columns at {offset}")
+    if not fits(K, widths):
+        raise ValueError(f"{name}: K={K} with widths {widths} is beyond the "
+                         f"kernel (K <= {ROWS}, <= {MAX_LAYERS} layers, "
+                         f"{SMEM_LIMIT} bytes of shared memory)")
+    if B * N >= 2 ** 31 or B < 1 or S < 1 or N < 1:
+        raise ValueError(f"{name}: B={B}, N={N}, S={S} out of range")
+    return widths
+
+
+def sa_mlp_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor,
+                feats: torch.Tensor | None, idx: torch.Tensor,
+                layers: Sequence[Layer], out: torch.Tensor,
+                offset: int = 0) -> torch.Tensor:
+    """The kernel: writes `sa_mlp_plain`'s [B, S, C_out] into out[...,
+    offset:offset + C_out] (out [B, S, C], float32) and returns out.  The
+    indices are `ball_query`'s, each in [0, N) (the kernel reads them as
+    they are)."""
+    if not xyz.is_cuda:
+        raise ValueError(f"sa_mlp_cuda: tensors must be on CUDA, got "
+                         f"{xyz.device}")
+    widths = _check(xyz, new_xyz, feats, idx, layers, out, offset)
+    B, N, _ = xyz.shape
+    _, S, K = idx.shape
+    cpt, x, y, smem = layout(K, widths)
+    lib = _lib()
+    args = _CArgs(xyz.data_ptr(), new_xyz.data_ptr(),
+                  None if feats is None else feats.data_ptr(),
+                  idx.data_ptr(), out.data_ptr(), B, N, S, K,
+                  0 if feats is None else feats.shape[-1], out.shape[2],
+                  offset, len(layers), cpt, x, y, smem)
+    for i, L in enumerate(layers):
+        args.layer[i] = _CLayer(
+            L.weight.data_ptr(), L.bias.data_ptr(), L.gamma.data_ptr(),
+            L.beta.data_ptr(), L.mean.data_ptr(), L.var.data_ptr(),
+            float(L.eps), L.weight.shape[1], L.weight.shape[0], 0)
+    with torch.cuda.device(xyz.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.captra_sa_mlp(ctypes.byref(args), stream)
+    if err != 0:
+        msg = lib.captra_sa_mlp_error_string(err).decode()
+        raise RuntimeError(f"sa_mlp_cuda launch failed: {msg} ({err})")
+    launch_counts["sa_mlp_cuda"] += 1
+    return out
+
+
+def sa_scale(xyz: torch.Tensor, new_xyz: torch.Tensor,
+             feats: torch.Tensor | None, idx: torch.Tensor,
+             layers: Sequence[Layer], out: torch.Tensor,
+             offset: int = 0) -> torch.Tensor:
+    """Device dispatch of one fused scale into out[..., offset:offset +
+    C_out]: CPU -> `sa_mlp_plain`; CUDA -> `sa_mlp_cuda`."""
+    profiling.count("sa_fused")
+    if xyz.device.type == "cpu":
+        got = sa_mlp_plain(xyz, new_xyz, feats, idx, layers)
+        out[..., offset:offset + got.shape[-1]] = got
+        return out
+    if xyz.device.type != "cuda":
+        raise ValueError(f"no fused set-abstraction scale for device "
+                         f"{xyz.device}")
+    return sa_mlp_cuda(xyz, new_xyz, feats, idx, layers, out, offset)

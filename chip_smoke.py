@@ -14,6 +14,12 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 Kernel and plain times from CUDA events; for the blocked
                 kernel, the rows its skip rule updates a pick (a plain
                 replay on the card).
+  2b. sa_mlp -- the fused set-abstraction kernel (`csrc/sa_mlp.cu`) at
+                every scale of the tracking cells (CoordNet and RotNet on
+                16 clouds, CoordNet on 8, RotNet on 32; sa1 and sa2),
+                against the module chain on the card (within 1e-4 of the
+                largest output), with the kernel's time, the chain's and
+                the bound.
   3. slice   -- the main path: NOCS bottle tracking at full width (4096
                 points, the `pointnet2_camera` backbone), random weights
                 from a seed, synthetic trajectories of T frames, in the runs
@@ -412,6 +418,40 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the fused set-abstraction kernel's launches (`ops/sa_mlp.py`) by run,
+# added where each run's counters are read: the kernels line's
+# launches_by_path for sa_mlp_cuda
+SA_LAUNCHES: dict = {}
+# a net's pass in eval mode, BatchNorm and float32 launches one a scale:
+# sa1's three and sa2's two; bfloat16, GroupNorm and training launch none
+SA_SCALES = 5
+
+
+def reset_launches() -> None:
+    """Zero the hand-written kernels' launch counters: FPS's and the fused
+    set-abstraction scale's."""
+    from captra_tpu_torch.ops import fps, sa_mlp
+    fps.reset_launch_counts()
+    sa_mlp.reset_launch_counts()
+
+
+def read_sa(path: str) -> int:
+    """The fused scale's launches since `reset_launches`, added to
+    SA_LAUNCHES[path]."""
+    from captra_tpu_torch.ops import sa_mlp
+    n = sa_mlp.launch_counts["sa_mlp_cuda"]
+    SA_LAUNCHES[path] = SA_LAUNCHES.get(path, 0) + n
+    return n
+
+
+def check_sa(name: str, got: int, want: int, dev: torch.device) -> None:
+    """A run's fused-scale launches as predicted (on the card: the CPU
+    takes the plain twin, which launches nothing)."""
+    if dev.type == "cuda" and got != want:
+        raise AssertionError(f"{name}: {got} sa_mlp_cuda launches, "
+                             f"expected {want}")
+
+
 def time_ms(fn, reps: int, warmup: int = 2, launches: int = 1) -> float:
     """Mean device time of `fn` over `reps` calls (CUDA events).  The card
     first sleeps for about 100 us per kernel launch to come (`launches` a
@@ -743,6 +783,107 @@ def phase_kernels() -> dict:
     return results
 
 
+# the tracking cells' set abstractions: (where, clouds, sa1 feature
+# channels); sa2 takes sa1's 320 channels at the same clouds
+SA_CELLS = (
+    ("bottle CoordNet, B=16 (points and OTF)", 16, 3),
+    ("bottle RotNet, B=16 (points and OTF)", 16, 0),
+    ("drawers CoordNet, B=8", 8, 3),
+    ("drawers RotNet, 8 streams x 4 parts", 32, 0),
+)
+
+
+def sa_bound_ms(B, N, S, K, cf, dims) -> tuple[float, str]:
+    """Least time of one fused scale on this card: its products (2 FLOP a
+    multiply-add, every neighbour slot) at the float32 peak against its
+    bytes (the xyz and feature tables, centres, indices and weights read
+    once, the pooled rows written once) at the HBM peak."""
+    macs, cin, weights = 0, cf + 3, 0
+    for d in dims:
+        macs += cin * d
+        weights += cin * d + 5 * d
+        cin = d
+    flops = 2.0 * B * S * K * macs
+    nbytes = 4 * (B * N * (cf + 3) + B * S * 3 + weights + B * S * cin) \
+        + 8 * B * S * K
+    ops_ms = flops / FP32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms
+                                   else "bytes")
+
+
+def phase_sa_mlp() -> list:
+    """The fused set-abstraction kernel at every scale the tracking cells
+    run: against the module chain on the card (`sa_mlp_plain`: the same
+    aten calls as the chain, so the plain twin and the library chain are
+    one timing), its time, the chain's and the bound (CUDA events)."""
+    from captra_tpu_torch.config.presets import nocs_bottle
+    from captra_tpu_torch.models.backbone import scale_layers
+    from captra_tpu_torch.ops import cuda_build, pointops, sa_mlp
+    seeded_sa = port_helpers().seeded_sa
+    t0 = time.perf_counter()
+    cuda_build.build([sa_mlp.SOURCE])
+    log(f"build {sa_mlp.SOURCE}: {time.perf_counter() - t0:.2f} s")
+    for line in cuda_build.ptxas_usage(sa_mlp.SOURCE):
+        log(f"  ptxas: {line}")
+    pn = nocs_bottle().pointnet
+    rng = np.random.RandomState(SEED)
+    rows = []
+    for where, B, cf1 in SA_CELLS:
+        xyz = torch.from_numpy((rng.rand(B, 4096, 3) - 0.5).astype(
+            np.float32) * 0.6).cuda()
+        feats = xyz if cf1 else None
+        for stage, sa_cfg, cf in (("sa1", pn.sa1, cf1),
+                                  ("sa2", pn.sa2, 320)):
+            if stage == "sa2":
+                xyz = new_xyz
+                feats = torch.from_numpy(np.abs(rng.randn(
+                    B, xyz.shape[1], 320)).astype(np.float32)).cuda()
+            m = seeded_sa(sa_cfg, cf, B + cf, "cuda")
+            new_xyz = pointops.gather_xyz(
+                xyz, pointops.farthest_point_sample(xyz, sa_cfg.npoint))
+            N, S = xyz.shape[1], sa_cfg.npoint
+            for i, (radius, K) in enumerate(zip(sa_cfg.radius_list,
+                                                sa_cfg.nsample_list)):
+                mlp = getattr(m, f"scale_{i}")
+                layers = scale_layers(mlp)
+                idx = pointops.ball_query(radius, K, xyz, new_xyz)
+                out = torch.empty(B, S, mlp.out_dim, device="cuda")
+                with torch.no_grad():
+                    def kernel():
+                        sa_mlp.sa_mlp_cuda(xyz, new_xyz, feats, idx, layers,
+                                           out)
+
+                    def chain():
+                        return sa_mlp.sa_mlp_plain(xyz, new_xyz, feats, idx,
+                                                   layers)
+                    kernel()
+                    want = chain()
+                    torch.cuda.synchronize()
+                    scale = float(want.abs().max())
+                    abs_err = float((out - want).abs().max())
+                    err = abs_err / scale
+                    k_ms = time_ms(kernel, reps=10)
+                    c_ms = time_ms(chain, reps=10, launches=16)
+                dims = sa_cfg.mlp_list[i]
+                bound, by = sa_bound_ms(B, N, S, K, cf, dims)
+                row = dict(where=where, stage=stage, scale=i, B=B, N=N, S=S,
+                           K=K, cf=cf, dims=list(dims), kernel_ms=k_ms,
+                           chain_ms=c_ms, bound_ms=bound, bound_by=by,
+                           rel_err=err, max_abs_err=abs_err)
+                rows.append(row)
+                log(f"kernel sa_mlp_cuda {where} {stage} scale {i} "
+                    f"[{B},{S},{K},{cf + 3}]->{list(dims)}: {k_ms:.4f} ms, "
+                    f"plain twin = library chain {c_ms:.4f} ms, bound "
+                    f"{bound:.4f} ms ({by}, {100 * bound / k_ms:.1f}%), "
+                    f"max |kernel - chain| {err:.3g} of the largest output")
+                if not err <= 1e-4:
+                    raise AssertionError(f"sa_mlp_cuda {where} {stage} "
+                                         f"scale {i}: {err:.3g} from the "
+                                         "chain")
+    return rows
+
+
 @contextlib.contextmanager
 def plain_fps_on_card():
     """Route the point ops' FPS to the plain version for one comparison run
@@ -819,9 +960,10 @@ def timed_run(name: str, track, B: int, frames: int, dev: torch.device,
     from captra_tpu_torch.ops import fps
     track(3)                                          # warm-up
     sync(dev)
-    fps.reset_launch_counts()
+    reset_launches()
     steps_ms, aux = time_track(lambda: track(frames), frames - 1, dev)
     launches = dict(fps.launch_counts)
+    sa = read_sa(name.replace(" ", "_"))
     for f in ("rotation", "translation", "scale"):
         if not bool(torch.isfinite(getattr(aux.pose, f)).all()):
             raise AssertionError(f"{name}: non-finite {f}")
@@ -836,7 +978,7 @@ def timed_run(name: str, track, B: int, frames: int, dev: torch.device,
     prof = (profile_window(lambda: track(4), 3, B, profile,
                            tag=name.replace(" ", "_")) if profile else None)
     ms = float(np.median(steps_ms))
-    return dict(B=B, launches=launches, ms_per_step=ms,
+    return dict(B=B, launches=launches, sa_launches=sa, ms_per_step=ms,
                 ms_per_step_runs=steps_ms, frames_per_s=B * 1e3 / ms,
                 plain_fps_diff=diff, profile=prof), aux
 
@@ -957,7 +1099,8 @@ def phase_slice(config=None, device: str = "cuda",
 
 def check_launches(sliced: dict, runs=SLICE_RUNS, frames: int = T) -> None:
     """Every kernel launched on the main path, each run's launches a tracked
-    frame 4 sweeps split between the kernels by B, times its passes."""
+    frame 4 sweeps split between the kernels by B, times its passes, and
+    the fused scale's 5 a net a pass in float32 (none in bfloat16)."""
     from captra_tpu_torch.ops import fps
     tracked = REPEATS * (frames - 1)
     for name, B, _, _, passes in runs:
@@ -969,6 +1112,9 @@ def check_launches(sliced: dict, runs=SLICE_RUNS, frames: int = T) -> None:
         if got != want:
             raise AssertionError(f"slice {name}: FPS launches {got}, "
                                  f"expected {want}")
+        nets = 0 if name.startswith(BF16_PREFIX) else 2
+        check_sa(f"slice {name}", sliced["runs"][name]["sa_launches"],
+                 nets * SA_SCALES * passes * tracked, torch.device("cuda"))
     for name in SLICE_KERNELS:
         if sliced["launches"][name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
@@ -1221,7 +1367,9 @@ def phase_otf(device: str = "cuda", profile: str | None = None,
 
 
 def check_otf_launches(otf: dict, frames: int = T) -> None:
-    """The launches per tracked frame of each OTF run, as predicted."""
+    """The launches per tracked frame of each OTF run, as predicted: FPS's
+    by OTF_LAUNCHES, the fused scale's 5 a net in float32 (none in
+    bfloat16)."""
     tracked = REPEATS * (frames - 1)
     for name, run in otf["runs"].items():
         want = {k: OTF_LAUNCHES[name].get(k, 0) * tracked
@@ -1229,6 +1377,9 @@ def check_otf_launches(otf: dict, frames: int = T) -> None:
         if run["launches"] != want:
             raise AssertionError(f"otf {name}: FPS launches "
                                  f"{run['launches']}, expected {want}")
+        nets = 0 if name.startswith(BF16_PREFIX) else 2
+        check_sa(f"otf {name}", run["sa_launches"],
+                 nets * SA_SCALES * tracked, torch.device("cuda"))
 
 
 @contextlib.contextmanager
@@ -1300,7 +1451,7 @@ def phase_init_search(config=None, device: str = "cuda",
 
     search()                                           # warm-up
     sync(dev)
-    fps.reset_launch_counts()
+    reset_launches()
     search_ms = []
     for _ in range(REPEATS):
         t0 = time.perf_counter()
@@ -1308,6 +1459,7 @@ def phase_init_search(config=None, device: str = "cuda",
         sync(dev)
         search_ms.append((time.perf_counter() - t0) * 1e3)
     launches = dict(fps.launch_counts)
+    sa = read_sa("init_search")
     with plain_fps_on_card():
         plain_found = search()
     diff = _max_pose_diff(found, plain_found)
@@ -1322,9 +1474,14 @@ def phase_init_search(config=None, device: str = "cuda",
     if dev.type == "cuda" and launches != want:
         raise AssertionError(f"init_search: FPS launches {launches}, "
                              f"expected {want}")
+    # the search runs CoordNet alone: its five scales a pass
+    if dev.type == "cuda" and sa != SA_SCALES * passes * REPEATS:
+        raise AssertionError(f"init_search: {sa} sa_mlp_cuda launches, "
+                             f"expected {SA_SCALES * passes * REPEATS}")
     ms = float(np.median(search_ms))
     out = {"search": dict(B=1, K=INIT_SEARCH_K, ms=ms, ms_runs=search_ms,
-                          launches=launches, plain_fps_diff=diff)}
+                          launches=launches, sa_launches=sa,
+                          plain_fps_diff=diff)}
     log(f"init_search: K={INIT_SEARCH_K} candidates, {passes} passes, "
         f"{ms:.2f} ms a search (median of {REPEATS}; min {min(search_ms):.2f}"
         f", max {max(search_ms):.2f}); FPS launches a search "
@@ -1347,6 +1504,8 @@ def phase_init_search(config=None, device: str = "cuda",
                                       "fps_cuda_batched": 2.0}:
         raise AssertionError(f"init_search track_b1: FPS launches a frame "
                              f"{got}")
+    check_sa("init_search track_b1", out["track_b1"]["sa_launches"],
+             2 * SA_SCALES * REPEATS * (frames - 1), dev)
     if kernels is not None:
         calls = {}
         with recording_fps(calls):
@@ -1480,9 +1639,10 @@ def phase_cli(kernels: dict) -> dict:
                 f"in {build_s:.3f} s")
 
             sync(dev)
-            fps.reset_launch_counts()
+            reset_launches()
             text, _, track_s = _printed(track.main, argv, device=dev)
             launches = dict(fps.launch_counts)
+            read_sa(f"cli_{name}")
             for line in text.strip().splitlines():
                 log(f"  | {line}")
             batches = _BATCH_LINE.findall(text)
@@ -1613,10 +1773,11 @@ def check_reference_checkpoint(tmp: str, dev: torch.device) -> dict:
         return track_trajectory(step, init, {"points": points}, device=dev)
 
     sync(dev)
-    fps.reset_launch_counts()
+    reset_launches()
     _, aux = track(cv, rv)
     sync(dev)
     launches = dict(fps.launch_counts)
+    read_sa("cli_reference_pt")
     want = {k: predicted_launches(cfg, 1).get(k, 0) * (T - 1)
             for k in launches}
     if launches != want:
@@ -1946,9 +2107,10 @@ def track_from_disk(name: str, root: str, flags: list, exp: str,
     track.dataset_sequences = _timed_reads(dataset_sequences, reads)
     try:
         sync(dev)
-        fps.reset_launch_counts()
+        reset_launches()
         text, _, main_s = _printed(track.main, argv, device=dev)
         launches = dict(fps.launch_counts)
+        read_sa(f"{path}_{name}")
     finally:
         track.track_sequences = sequences
         track.dataset_sequences = dataset_sequences
@@ -2427,7 +2589,7 @@ def train_run(name: str, config: str, overrides: dict, dev, kernels: dict
         log(f"train {name}: host sync in a step: {msg}")
     sync(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    fps.reset_launch_counts()
+    reset_launches()
     steps_ms, losses = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -2436,6 +2598,7 @@ def train_run(name: str, config: str, overrides: dict, dev, kernels: dict
         steps_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss["total_loss"])
     launches = dict(fps.launch_counts)
+    read_sa(f"train_{name}")
     peak = torch.cuda.max_memory_allocated(dev)
     want = {k: v * TRAIN_STEPS for k, v in train_launches(cfg, B).items()}
     if {k: v for k, v in launches.items() if v} != want:
@@ -2546,13 +2709,14 @@ def phase_train(kernels: dict) -> dict:
                         "--total_epoch", str(epochs), *common]
                 cfg = get_config(config, {"batch_size": TRAIN_CLI_BATCH})
                 sync(dev)
-                fps.reset_launch_counts()
+                reset_launches()
                 with recording_fps(cli_calls if label == "coord_epoch0"
                                    else {}):
                     text, state, seconds = _printed(train_cli.main, argv,
                                                     device=dev)
                 sync(dev)
                 launches = {k: v for k, v in fps.launch_counts.items() if v}
+                read_sa(f"train_cli_{label}")
                 want = {k: v * TRAIN_CLI_STEPS for k, v in
                         train_launches(cfg, TRAIN_CLI_BATCH).items()}
                 if launches != want or state.step != epochs * \
@@ -2585,10 +2749,11 @@ def phase_train(kernels: dict) -> dict:
             track_argv = ["--experiment_dir", rot, "--coord_exp/dir", coord,
                           "--synthetic_data", "--save"]
             sync(dev)
-            fps.reset_launch_counts()
+            reset_launches()
             text, avgs, seconds = _printed(track_cli.main, track_argv,
                                            device=dev)
             launches = {k: v for k, v in fps.launch_counts.items() if v}
+            read_sa("train_cli_track")
             tcfg = track_cli.parse(track_argv)[1]
             want = {}
             for _, frames, b, _, _ in _BATCH_LINE.findall(text):
@@ -2615,13 +2780,14 @@ def phase_train(kernels: dict) -> dict:
             write_nocs_splits(root, np.random.RandomState(SEED))
             exp = os.path.join(tmp, "finetune")
             sync(dev)
-            fps.reset_launch_counts()
+            reset_launches()
             text, state, seconds = _printed(finetune_cli.main, [
                 "--config", "config_coordnet.yml", "--experiment_dir", exp,
                 "--obj_config", "obj_info_nocs.yml", "--obj_category", "1",
                 "--basepath", root, "--batch_size",
                 str(TRAIN_CLI_BATCH), "--total_epoch", "1"], device=dev)
             launches = {k: v for k, v in fps.launch_counts.items() if v}
+            read_sa("train_cli_finetune")
             log_text = open(os.path.join(exp, "log", "log.txt")).read()
             want_steps = 2 * FINETUNE_FRAMES["real_train"] // TRAIN_CLI_BATCH
             # the train steps and the real_test evaluation's steps
@@ -2747,12 +2913,13 @@ def phase_rollout(kernels: dict, profile: str | None = None) -> dict:
         calls, alerts = {}, set()
         with deterministic_algorithms(alerts):
             sync(dev)
-            fps.reset_launch_counts()
+            reset_launches()
             with recording_fps(calls):
                 _, _, logs = round_fn(states["canon_coord"], states["rot"],
                                       draws=draws)
             sync(dev)
             launches = {k: v for k, v in fps.launch_counts.items() if v}
+            read_sa("rollout_round1")
             with plain_fps_on_card():
                 _, _, plain = round_fn(twins["canon_coord"], twins["rot"],
                                        draws=draws)
@@ -2838,9 +3005,10 @@ def phase_rollout(kernels: dict, profile: str | None = None) -> dict:
         torch.cuda.empty_cache()
 
         sync(dev)
-        fps.reset_launch_counts()
+        reset_launches()
         text, report, main_s = _printed(rcli.main, argv, device=dev)
         main_launches = {k: v for k, v in fps.launch_counts.items() if v}
+        read_sa("rollout_main")
         for line in text.strip().splitlines():
             log(f"  | {line}")
         want = {k: ROLLOUT_ROUNDS * per_round.get(k, 0)
@@ -3050,7 +3218,7 @@ def multi_rank(rank: int, world: int, device: str, batch: dict,
             out["faults"][name] = fstate.grads.cpu().numpy()
     sync(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    fps.reset_launch_counts()
+    reset_launches()
     steps_ms = []
     for s in range(MULTI_TIMED):
         dp.barrier()
@@ -3059,6 +3227,7 @@ def multi_rank(rank: int, world: int, device: str, batch: dict,
         sync(dev)
         steps_ms.append((time.perf_counter() - t0) * 1e3)
     out["launches"] = {k: v for k, v in fps.launch_counts.items() if v}
+    out["sa_launches"] = read_sa("multi_w2")
     out["steps_ms"] = steps_ms
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     spent, out["reduce_ms"], out["reduce_steps_ms"] = [0.0], [], []
@@ -3074,7 +3243,7 @@ def multi_rank(rank: int, world: int, device: str, batch: dict,
     out["tracks"] = {}
     for name, argv, cv, rv in tracks:
         args, tcfg = track.parse(argv)
-        fps.reset_launch_counts()
+        reset_launches()
         text, calls = io.StringIO(), {}
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(text), (
@@ -3083,6 +3252,7 @@ def multi_rank(rank: int, world: int, device: str, batch: dict,
             track.run_tracking(args, tcfg, cv, rv, dev, dp)
         out["tracks"][name] = {
             "launches": {k: v for k, v in fps.launch_counts.items() if v},
+            "sa_launches": read_sa(f"multi_track_{name}"),
             "seconds": time.perf_counter() - t0, "text": text.getvalue(),
             "fps_inputs": _cpu_calls(calls)}
     return out
@@ -3235,7 +3405,7 @@ def phase_multi(data: dict, tmp: str, kernels: dict) -> dict:
     out = {"B": B, "steps": MULTI_STEPS}
 
     # (a) one NCCL rank in this process
-    fps.reset_launch_counts()
+    reset_launches()
     with tempfile.TemporaryDirectory(prefix="captra_nccl_") as store:
         mesh.init_data_parallel(0, 1, "file://" + os.path.join(store, "s"),
                                 "nccl")
@@ -3244,6 +3414,7 @@ def phase_multi(data: dict, tmp: str, kernels: dict) -> dict:
         finally:
             dist.destroy_process_group()
     out["w1_launches"] = {k: v for k, v in fps.launch_counts.items() if v}
+    read_sa("multi_w1")
     w1_diff = max(_relative_loss_diff(a, b)
                   for a, b in zip(w1_losses, ref_losses))
     w1_grad = float(np.abs(w1_grads - ref_grads).max())
@@ -3299,6 +3470,7 @@ def phase_multi(data: dict, tmp: str, kernels: dict) -> dict:
             {k: v / MULTI_TIMED for k, v in r["launches"].items()}
             for r in ranks],
         w2_losses=[r["losses"] for r in ranks],
+        w2_sa_launches_by_rank=[r["sa_launches"] for r in ranks],
         w2_fault_grad_diff_rel=faults,
         w2_reduce_ms_by_rank=reduce_ms,
         w2_reduce_step_ms_by_rank=reduce_step_ms)
@@ -3327,6 +3499,7 @@ def phase_multi(data: dict, tmp: str, kernels: dict) -> dict:
                              f"({faults[MULTI_GATED_FAULT]:.3e})")
     _check_rank_inputs(kernels, ranks[0]["fps_inputs"], "w2_rank0",
                        MULTI_STEPS, MULTI_WHERE, "step")
+    SA_LAUNCHES["multi_w2"] = sum(r["sa_launches"] for r in ranks)
     for r in out["w2_launches_per_step_by_rank"]:
         if r != MULTI_LAUNCHES:
             raise AssertionError(f"multi (b): FPS launches a step {r}, "
@@ -3355,7 +3528,11 @@ def phase_multi(data: dict, tmp: str, kernels: dict) -> dict:
                            steps, MULTI_TRACK_WHERE, "frame")
         out["tracks"][name] = dict(
             max_diff=diff, seconds=run["seconds"],
-            launches_by_rank=[r["tracks"][name]["launches"] for r in ranks])
+            launches_by_rank=[r["tracks"][name]["launches"] for r in ranks],
+            sa_launches_by_rank=[r["tracks"][name]["sa_launches"]
+                                 for r in ranks])
+        SA_LAUNCHES[f"multi_track_{name}"] = sum(
+            out["tracks"][name]["sa_launches_by_rank"])
         log(f"multi track {name} over {MULTI_RANKS} ranks: results within "
             f"{diff:.3e} of "
             f"{'each trajectory alone' if sharded else 'the data phase'}; "
@@ -3478,11 +3655,12 @@ def counted_run(out: dict, calls: dict, phase: str, name: str, fn, *args,
     from captra_tpu_torch.ops import fps
     dev = torch.device("cuda")
     sync(dev)
-    fps.reset_launch_counts()
+    reset_launches()
     with recording_fps(calls):
         text, ret, seconds = _printed(fn, *args, **kwargs)
     sync(dev)
     out["launches"][name] = {k: v for k, v in fps.launch_counts.items() if v}
+    read_sa(f"{phase}_{name}")
     out["seconds"][name] = seconds
     for line in text.strip().splitlines():
         log(f"  | {line}")
@@ -3909,6 +4087,8 @@ def main() -> int:
     lap("device")
     kernels = phase_kernels()
     lap("kernels")
+    sa_rows = phase_sa_mlp()
+    lap("sa_mlp")
     sliced = phase_slice(profile=args.profile)
     check_launches(sliced)
     lap("slice")
@@ -3985,6 +4165,25 @@ def main() -> int:
             "launches_by_path": by_path,
             "shapes": cases,
         })
+    # the fused scale's headline: a step's five scales of its first cell
+    head = [r for r in sa_rows if r["where"] == SA_CELLS[0][0]]
+    line.append({
+        "name": "sa_mlp_cuda", "route": "cuda",
+        "source": "captra_tpu_torch/csrc/sa_mlp.cu",
+        "replaces": "captra_tpu/models/backbone.py (the MSG scale; no "
+                    "Pallas kernel)",
+        "launches": sum(SA_LAUNCHES.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in sa_rows),
+        "ms": sum(r["kernel_ms"] for r in head),
+        "plain_ms": sum(r["chain_ms"] for r in head),
+        "bound_ms": sum(r["bound_ms"] for r in head),
+        "bound_by": "/".join(sorted({r["bound_by"] for r in head})),
+        # the plain twin makes the chain's own aten calls: one timing
+        "library_ms": sum(r["chain_ms"] for r in head),
+        "at": f"{SA_CELLS[0][0]}, a step's {len(head)} scales",
+        "launches_by_path": dict(SA_LAUNCHES),
+        "shapes": sa_rows,
+    })
     log(json.dumps({"slice": sliced}))
     log(json.dumps({"otf": otf}))
     log(json.dumps({"init_search": init}))

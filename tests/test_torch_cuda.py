@@ -1,4 +1,5 @@
-"""The CUDA FPS kernels on the card, against the plain PyTorch FPS.
+"""The CUDA kernels on the card: FPS against the plain PyTorch FPS, the
+fused set-abstraction scale against the module chain.
 
 These tests need an NVIDIA card and the CUDA toolkit: the kernels have no
 CPU mode, so without a card each test skips with that reason.  This file
@@ -693,3 +694,208 @@ def test_two_gloo_ranks_on_one_card_step_as_the_global_batch(card):
     for r in ranks:
         assert r["launches"] == [{"fps_cuda_wide": 1,
                                   "fps_cuda_batched": 1}] * 3
+
+
+# ---------------------------------------------------------------------------
+# the fused set-abstraction scale (csrc/sa_mlp.cu)
+# ---------------------------------------------------------------------------
+
+# The kernel sums each output's products in another order than cuBLAS (one
+# float32 FMA chain from channel 0 up), so its outputs differ from the
+# chain's by float32 rounding, amplified by the BatchNorms' 1/std: both are
+# held to a float64 copy of the chain, the kernel to within 4 x the chain's
+# own distance from it (a tolerance of the summation order, not of the
+# arithmetic) plus 2e-6 of the largest output.
+SA_ORDER_FACTOR = 4.0
+SA_FLOOR = 2e-6
+
+
+def _sa_module(sa_cfg, cf, seed, device, dims=None, nsample=None):
+    """`torch_port_helpers.seeded_sa` on `device`; with `dims`, one scale of
+    `nsample` neighbours and those widths in place of `sa_cfg`."""
+    from torch_port_helpers import seeded_sa
+
+    from captra_tpu_torch.config.schema import SAMsgCfg
+    if dims is not None:
+        sa_cfg = SAMsgCfg(npoint=4, radius_list=(0.3,),
+                          nsample_list=(nsample,), mlp_list=(dims,))
+    return seeded_sa(sa_cfg, cf, seed, device)
+
+
+def _sa_inputs(B, N, cf, seed, device):
+    rng = np.random.RandomState(seed)
+    xyz = torch.from_numpy((rng.rand(B, N, 3) - 0.5).astype(np.float32)
+                           ).to(device)
+    feats = None if cf == 0 else torch.from_numpy(
+        np.abs(rng.randn(B, N, cf)).astype(np.float32)).to(device)
+    return xyz, feats
+
+
+def _sa_layers(mlp, dtype=torch.float32, device="cpu"):
+    """`scale_layers(mlp)` copied to `device` in `dtype`."""
+    from captra_tpu_torch.models.backbone import scale_layers
+    from captra_tpu_torch.ops import sa_mlp
+    return [sa_mlp.Layer(*(t.detach().to(device, dtype) for t in L[:6]),
+                         L.eps) for L in scale_layers(mlp)]
+
+
+def _check_scales(m, xyz, feats, new_xyz):
+    """Each scale of module m: the kernel against the chain on the card
+    (`sa_mlp_plain`, cuBLAS) and both against a float64 copy on the CPU."""
+    from captra_tpu_torch.ops import sa_mlp
+    B, S = new_xyz.shape[:2]
+    for i, (radius, k) in enumerate(zip(m.cfg.radius_list,
+                                        m.cfg.nsample_list)):
+        mlp = getattr(m, f"scale_{i}")
+        idx = ops.ball_query(radius, k, xyz, new_xyz)
+        layers = _sa_layers(mlp, device=xyz.device)
+        out = torch.full((B, S, mlp.out_dim + 5), -7.0, device=xyz.device)
+        sa_mlp.sa_mlp_cuda(xyz, new_xyz, feats, idx, layers, out, 3)
+        chain = sa_mlp.sa_mlp_plain(xyz, new_xyz, feats, idx, layers)
+        torch.cuda.synchronize()
+        ref = sa_mlp.sa_mlp_plain(
+            xyz.cpu().double(), new_xyz.cpu().double(),
+            None if feats is None else feats.cpu().double(), idx.cpu(),
+            _sa_layers(mlp, torch.float64))
+        got = out[..., 3:3 + mlp.out_dim].cpu().double()
+        assert (out[..., :3] == -7.0).all() and (out[..., -2:] == -7.0).all()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        err_chain = float((chain.cpu().double() - ref).abs().max())
+        print(f"scale {i} K={k} widths {[L.weight.shape for L in layers]}: "
+              f"kernel {err / scale:.3g}, chain {err_chain / scale:.3g} "
+              f"of {scale:.3g}")
+        assert err <= SA_ORDER_FACTOR * err_chain + SA_FLOOR * scale, i
+
+
+@pytest.mark.parametrize("B,cf", [(16, 3), (16, 0), (8, 3), (32, 0)])
+@pytest.mark.parametrize("stage", ["sa1", "sa2"])
+def test_sa_kernel_matches_the_chain_at_the_cells_shapes(card, B, cf, stage):
+    # the tracking cells' set abstractions: CoordNet (sa1 features xyz,
+    # cf 3) and RotNet (no features) on 16 clouds (bottle), CoordNet on 8
+    # and RotNet on 32 (drawers: 8 streams x 4 parts); sa2 takes sa1's 320
+    from captra_tpu_torch.config.presets import nocs_bottle
+    pn = nocs_bottle().pointnet
+    sa_cfg, N, cf = ((pn.sa1, 4096, cf) if stage == "sa1"
+                     else (pn.sa2, pn.sa1.npoint, 320))
+    m = _sa_module(sa_cfg, cf, B + cf, card)
+    xyz, feats = _sa_inputs(B, N, cf, B, card)
+    new_xyz = ops.gather_xyz(xyz, ops.farthest_point_sample(
+        xyz, sa_cfg.npoint))
+    _check_scales(m, xyz, feats, new_xyz)
+
+
+@pytest.mark.parametrize("S,K,dims,cf", [
+    (37, 32, (32, 32, 64), 3),        # a last tile of 1 centre in 4
+    (5, 128, (64, 96, 128), 0),       # one centre a tile
+    (9, 48, (40, 196), 320),          # K dividing no tile: 2 centres, 96 rows
+    (21, 8, (16, 32), 3),             # 16 centres a tile, two layers
+    (3, 1, (130,), 5),                # one layer, two column chunks
+    (11, 16, (8, 200, 260), 0),       # three layers, ragged widths
+])
+def test_sa_kernel_ragged_tiles_and_widths(card, S, K, dims, cf):
+    from captra_tpu_torch.config.schema import SAMsgCfg
+    sa_cfg = SAMsgCfg(npoint=S, radius_list=(0.3,), nsample_list=(K,),
+                      mlp_list=(dims,))
+    m = _sa_module(sa_cfg, cf, S + K, card)
+    xyz, feats = _sa_inputs(3, 300, cf, S, card)
+    new_xyz = ops.gather_xyz(xyz, ops.farthest_point_sample(xyz, S))
+    _check_scales(m, xyz, feats, new_xyz)
+
+
+def test_sa_module_launches_one_kernel_a_scale(card):
+    # CoordNet's sa1 as the tracker calls it: the cloud and its features a
+    # [B, N, 3] view of [B, 3, N] (the ball query keeps that layout)
+    from captra_tpu_torch.config.presets import nocs_bottle
+    from captra_tpu_torch.ops import sa_mlp
+    pn = nocs_bottle().pointnet
+    m = _sa_module(pn.sa1, 3, 0, card)
+    xyz = _sa_inputs(2, 4096, 3, 0, card)[0].transpose(1, 2).contiguous(
+        ).transpose(1, 2)
+    feats = xyz
+    sa_mlp.reset_launch_counts()
+    with torch.no_grad():
+        assert m.fused(xyz, feats)
+        new_xyz, got = m(xyz, feats)
+    assert sa_mlp.launch_counts["sa_mlp_cuda"] == len(pn.sa1.nsample_list)
+    want = m(xyz, feats)[1]           # grad enabled: the module chain
+    assert sa_mlp.launch_counts["sa_mlp_cuda"] == len(pn.sa1.nsample_list)
+    torch.cuda.synchronize()
+    scale = float(want.detach().abs().max())
+    assert float((got - want.detach()).abs().max()) <= 1e-4 * scale
+
+
+def test_sa_kernel_refuses_what_it_cannot_take(card):
+    from captra_tpu_torch.ops import sa_mlp
+    m = _sa_module(None, 0, 0, card, dims=(16, 32), nsample=8)
+    xyz, _ = _sa_inputs(1, 64, 0, 0, card)
+    layers = _sa_layers(m.scale_0, device=card)
+    new_xyz = xyz[:, :4].contiguous()
+    out = torch.empty(1, 4, 32, device=card)
+    idx = torch.zeros(1, 4, 129, dtype=torch.int64, device=card)
+    with pytest.raises(ValueError, match="beyond the kernel"):
+        sa_mlp.sa_mlp_cuda(xyz, new_xyz, None, idx, layers, out)
+    with pytest.raises(TypeError):
+        sa_mlp.sa_mlp_cuda(xyz, new_xyz, None, idx[..., :8].int(), layers,
+                           out)
+    with pytest.raises(ValueError, match="no room"):
+        sa_mlp.sa_mlp_cuda(xyz, new_xyz, None, idx[..., :8].contiguous(),
+                           layers, out, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        sa_mlp.sa_mlp_cuda(xyz.cpu(), new_xyz.cpu(), None,
+                           idx[..., :8].cpu(), layers, out.cpu())
+    # the module routes a scale beyond the kernel to it, which raises
+    wide = _sa_module(None, 0, 0, card, dims=(16, 32), nsample=160)
+    with torch.no_grad(), pytest.raises(ValueError, match="beyond the kernel"):
+        wide(_sa_inputs(1, 256, 0, 0, card)[0], None)
+
+
+@pytest.mark.parametrize("cell", ["bottle_points_b16", "drawers_points_b8"])
+def test_track_step_with_the_kernel_is_within_the_bench_limits(
+        card, cell, monkeypatch):
+    """The benchmark's nets and traffic cut to 2 streams: a tracking step
+    with the fused scales against the same step through the module chain
+    (the path before the kernel), frame by frame from the same carried
+    pose, every gap within the cell's limits (port_bench/limits)."""
+    import json
+
+    from port_bench.drivers import track
+    from port_bench.harness import Clock, Context, find_cell, load_spec
+
+    from captra_tpu_torch.models.backbone import SetAbstractionMsg
+    from captra_tpu_torch.ops import sa_mlp
+    c = find_cell(load_spec(), cell)
+    c.traffic = dict(c.traffic, streams=2, frames=4)
+    ctx = Context(cell=c, seed=2 ** 31 + 5, seconds=0.0, trace=False,
+                  device=card, clock=Clock(), log=lambda msg: None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s = track.setup(ctx)
+    loop, ranges = s["loop"], s["ranges"]
+    with open(f"port_bench/limits/{cell}.json") as f:
+        limits = json.load(f)["limits"]
+    sa_mlp.reset_launch_counts()
+    for _ in range(3):
+        pose_in, f = loop.pose, loop.f
+        got = loop.advance(ranges)
+        launched = sa_mlp.launch_counts["sa_mlp_cuda"]
+        with monkeypatch.context() as mp:
+            mp.setattr(SetAbstractionMsg, "fused",
+                       lambda self, xyz, feats: False)
+            loop.pose, loop.f = pose_in, f
+            want = loop.advance(ranges)
+        assert sa_mlp.launch_counts["sa_mlp_cuda"] == launched
+        new, aux, ref_new, ref_aux = got[2], got[3], want[2], want[3]
+        gaps = {"seg_gap": (aux.seg, ref_aux.seg, False),
+                "nocs_gap": (aux.nocs, ref_aux.nocs, False),
+                "rot_gap": (new.rotation, ref_new.rotation, False),
+                "trans_gap": (new.translation, ref_new.translation, False),
+                "scale_gap": (new.scale, ref_new.scale, True)}
+        for k, (a, b, rel) in gaps.items():
+            d = (a.double() - b.double()).abs()
+            if rel:
+                d = d / b.double().abs()
+            print(f"frame {f} {k}: {float(d.max()):.3g} "
+                  f"(limit {limits[k]})")
+            assert float(d.max()) <= limits[k], k
+    # CoordNet's and RotNet's sa1 and sa2: 5 scales a net a step
+    assert sa_mlp.launch_counts["sa_mlp_cuda"] == 3 * 2 * 5

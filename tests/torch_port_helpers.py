@@ -776,3 +776,29 @@ def dp_jobs_rank(rank, world, device, jobs):
     *args)} for each (name, function name, args) of `jobs`, in order."""
     return {name: globals()[fn](rank, world, device, *args)
             for name, fn, args in jobs}
+
+
+def seeded_sa(sa_cfg, cf, seed, device="cpu", param_dtype=None, **kw):
+    """An eval-mode port `SetAbstractionMsg` (keywords `kw` to its
+    constructor) with xavier weights and biases, BatchNorm scales, shifts
+    and running statistics drawn from `seed`, on `device`, its parameters
+    cast to `param_dtype` where given."""
+    import torch
+
+    from captra_tpu_torch.models.backbone import SetAbstractionMsg
+    from captra_tpu_torch.models.blocks import init_xavier_
+    gen = torch.Generator().manual_seed(seed)
+    m = init_xavier_(SetAbstractionMsg(sa_cfg, cf, **kw), generator=gen)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if name.endswith("bias"):
+                p.uniform_(-0.1, 0.1, generator=gen)
+            elif "norm" in name:
+                p.uniform_(0.8, 1.2, generator=gen)
+        for name, b in m.named_buffers():
+            if name.endswith("running_mean"):
+                b.uniform_(-0.1, 0.1, generator=gen)
+            elif name.endswith("running_var"):
+                b.uniform_(0.5, 1.5, generator=gen)
+    m = m.to(device)
+    return (m if param_dtype is None else m.to(param_dtype)).eval()
