@@ -8,11 +8,16 @@ weights meet features of the compute dtype (`torch.cat`, the
 interpolation's product), the result is float32, as `jnp` promotes; the
 next PointMLP casts it back.
 
-A set-abstraction scale in eval mode with BatchNorm, float32 and no
-gradient wanted takes `ops.sa_mlp.sa_scale` (on CUDA one hand-written
-kernel: gather, MLP and max-pool with no grouped activation in device
-memory; on the CPU its plain twin, today's arithmetic); any other scale
-runs the module chain (`SetAbstractionMsg.fused`)."""
+A stage's neighbour search (every radius of a set-abstraction stage, a
+propagation stage's 3-NN) takes `ops.neighbors`: one distance product a
+stage, then one hand-written selection kernel for float32 CUDA clouds
+that take no gradient (in training too), its plain twin for any other
+input; each runs inside a `backbone.neighbors` span.  A set-abstraction scale in eval
+mode with BatchNorm, float32 and no gradient wanted takes
+`ops.sa_mlp.sa_scale` (on CUDA one hand-written kernel: gather, MLP and
+max-pool with no grouped activation in device memory; on the CPU its plain
+twin, today's arithmetic); any other scale runs the module chain
+(`SetAbstractionMsg.fused`)."""
 from __future__ import annotations
 
 import torch
@@ -21,13 +26,14 @@ from torch import nn
 from captra_tpu_torch import ops
 from captra_tpu_torch.config.schema import PointNetCfg, SAMsgCfg
 from captra_tpu_torch.models.blocks import BatchNorm, PointMLP
-from captra_tpu_torch.ops import sa_mlp
+from captra_tpu_torch.ops import neighbors, sa_mlp
 from captra_tpu_torch.utils import profiling
 
 
 class SetAbstractionMsg(nn.Module):
-    """FPS -> per-radius ball query -> grouped MLP -> max-pool, multi-scale.
-    fps_mode "grouped" takes the stratified 8-way FPS approximation."""
+    """FPS -> every radius's ball query from one distance product ->
+    grouped MLP a radius -> max-pool, multi-scale.  fps_mode "grouped"
+    takes the stratified 8-way FPS approximation."""
 
     def __init__(self, cfg: SAMsgCfg, in_feat_dim: int, norm: str = "bn",
                  bn_momentum: float = 0.9, fps_mode: str = "exact",
@@ -67,31 +73,32 @@ class SetAbstractionMsg(nn.Module):
         fps_idx = ops.farthest_point_sample(xyz.detach(), self.cfg.npoint,
                                             mode=self.fps_mode)
         new_xyz = ops.gather_xyz(xyz, fps_idx)  # [B, S, 3]
+        # the ball query takes xyz in its own layout: the layout steers the
+        # distance product's rounding, hence the ball's edge
+        with profiling.annotate("backbone.neighbors"):
+            profiling.count("nbr_stages")
+            idxs = neighbors.ball_query_stage(
+                self.cfg.radius_list, self.cfg.nsample_list, xyz, new_xyz)
         if self.fused(xyz, feats):
-            return new_xyz, self._fused_scales(xyz, new_xyz, feats)
+            return new_xyz, self._fused_scales(xyz, new_xyz, feats, idxs)
         outs = []
-        for i, (radius, k) in enumerate(zip(self.cfg.radius_list,
-                                            self.cfg.nsample_list)):
+        for i, idx in enumerate(idxs):
             profiling.count("sa_scales")
-            g = ops.ball_group(radius, k, xyz, new_xyz, feats)
+            g = ops.group_ball(idx, xyz, new_xyz, feats)
             g = getattr(self, f"scale_{i}")(g)
             outs.append(torch.amax(g, dim=2))  # [B, S, C]
         return new_xyz, torch.cat(outs, dim=-1)
 
-    def _fused_scales(self, xyz, new_xyz, feats):
+    def _fused_scales(self, xyz, new_xyz, feats, idxs):
         """Every scale through `sa_mlp.sa_scale`, each writing its columns
-        of one [B, S, out_dim] tensor (no concatenation).  The ball query
-        takes xyz in its own layout, as the module chain does: the layout
-        steers the distance product's rounding, hence the ball's edge."""
+        of one [B, S, out_dim] tensor (no concatenation)."""
         rows = xyz.contiguous()
         feats = None if feats is None else feats.contiguous()
         B, S = new_xyz.shape[:2]
         out = xyz.new_empty((B, S, self.out_dim))
         offset = 0
-        for i, (radius, k) in enumerate(zip(self.cfg.radius_list,
-                                            self.cfg.nsample_list)):
+        for i, idx in enumerate(idxs):
             profiling.count("sa_scales")
-            idx = ops.ball_query(radius, k, xyz, new_xyz)
             mlp = getattr(self, f"scale_{i}")
             sa_mlp.sa_scale(rows, new_xyz, feats, idx, scale_layers(mlp),
                             out, offset)
@@ -130,8 +137,8 @@ class SetAbstractionAll(nn.Module):
 
 
 class FeaturePropagation(nn.Module):
-    """Inverse-squared-distance 3-NN upsampling + unit MLP; a single coarse
-    point (S == 1) broadcasts instead."""
+    """Inverse-squared-distance 3-NN upsampling (`neighbors.three_nn_stage`)
+    + unit MLP; a single coarse point (S == 1) broadcasts instead."""
 
     def __init__(self, mlp: tuple, in_dim: int, norm: str = "bn",
                  bn_momentum: float = 0.9, dtype: torch.dtype | None = None):
@@ -145,7 +152,9 @@ class FeaturePropagation(nn.Module):
             interp = feats2.expand(feats2.shape[0], xyz1.shape[1],
                                    feats2.shape[-1])
         else:
-            sq_dist, idx = ops.three_nn(xyz1, xyz2)
+            with profiling.annotate("backbone.neighbors"):
+                profiling.count("nbr_stages")
+                sq_dist, idx = neighbors.three_nn_stage(xyz1, xyz2)
             recip = 1.0 / (sq_dist + 1e-8)
             weight = recip / torch.sum(recip, dim=-1, keepdim=True)
             interp = ops.three_interp_rows(feats2, idx, weight)

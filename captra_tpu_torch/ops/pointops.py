@@ -21,9 +21,24 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """Pairwise squared L2: src [B, N, C], dst [B, M, C] -> [B, N, M].
     Same matmul + rank-1 form as the JAX op, so ball-query membership at
     the radius rounds the same way."""
-    d = -2.0 * (src @ dst.transpose(-1, -2))
-    d = d + torch.sum(src ** 2, dim=-1, keepdim=True)
-    d = d + torch.sum(dst ** 2, dim=-1)[..., None, :]
+    return distance_from_terms(*distance_terms(src, dst))
+
+
+def distance_terms(src: torch.Tensor, dst: torch.Tensor):
+    """`square_distance`'s terms: the product src @ dst^T [B, N, M] (the
+    library's, on the operands' own layouts: the layout steers its
+    rounding), |src|^2 [B, N, 1] and |dst|^2 [B, M]."""
+    return (src @ dst.transpose(-1, -2),
+            torch.sum(src ** 2, dim=-1, keepdim=True),
+            torch.sum(dst ** 2, dim=-1))
+
+
+def distance_from_terms(prod: torch.Tensor, src_sq: torch.Tensor,
+                        dst_sq: torch.Tensor) -> torch.Tensor:
+    """-2 prod + |src|^2 + |dst|^2, added in that order (`square_distance`)."""
+    d = -2.0 * prod
+    d = d + src_sq
+    d = d + dst_sq[..., None, :]
     return d
 
 
@@ -99,9 +114,16 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
     """The first `nsample` in-radius points in index order, slots padded
     with the first hit; queries with no hit return index 0.
     xyz [B, N, 3], new_xyz [B, S, 3] -> int64 [B, S, nsample]."""
-    N = xyz.shape[1]
-    in_ball = square_distance(new_xyz, xyz) <= _f32_square(radius)
-    order = torch.arange(N, dtype=torch.int32, device=xyz.device)
+    return ball_select(square_distance(new_xyz, xyz), radius, nsample)
+
+
+def ball_select(dist: torch.Tensor, radius: float,
+                nsample: int) -> torch.Tensor:
+    """`ball_query` from the squared distances dist [B, S, N] of the
+    centres to the points (`square_distance(new_xyz, xyz)`)."""
+    N = dist.shape[-1]
+    in_ball = dist <= _f32_square(radius)
+    order = torch.arange(N, dtype=torch.int32, device=dist.device)
     key = torch.where(in_ball, order, N)  # out-of-ball -> sentinel N
     del in_ball
     sel = torch.topk(key, nsample, dim=-1, largest=False, sorted=True)[0]
@@ -125,7 +147,12 @@ def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor):
     """3 nearest neighbors of xyz1 [B, N, 3] among xyz2 [B, M, 3] ->
     (squared dists [B, N, 3], int64 idx [B, N, 3]); three successive
     first-index argmins, as the JAX op does."""
-    sqr = square_distance(xyz1, xyz2)
+    return three_nn_select(square_distance(xyz1, xyz2))
+
+
+def three_nn_select(sqr: torch.Tensor):
+    """`three_nn` from the squared distances sqr [B, N, M] of xyz1 to xyz2
+    (`square_distance(xyz1, xyz2)`); sqr is overwritten."""
     dists, idxs = [], []
     for _ in range(3):
         i = torch.argmin(sqr, dim=-1, keepdim=True)       # [B, N, 1]

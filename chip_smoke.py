@@ -20,6 +20,13 @@ Phases (each one fails the run, with a non-zero exit, when it fails):
                 against the module chain on the card (within 1e-4 of the
                 largest output), with the kernel's time, the chain's and
                 the bound.
+  2c. neighbors -- the neighbour selection kernels (`csrc/neighbors.cu`)
+                at every stage and batch the paths give a backbone (sa1,
+                sa2, fp2, fp1 at 16, 8, 32, 12 and 64 clouds, CoordNet's
+                strided cloud): indices and 3-NN distances equal to the
+                chain's bit for bit, with the kernel's time, its plain
+                twin's, the chain's (`library_ms`), the product's and the
+                bound.
   3. slice   -- the main path: NOCS bottle tracking at full width (4096
                 points, the `pointnet2_camera` backbone), random weights
                 from a seed, synthetic trajectories of T frames, in the runs
@@ -427,21 +434,52 @@ SA_LAUNCHES: dict = {}
 SA_SCALES = 5
 
 
+# the neighbour selection kernels' launches (`ops/neighbors.py`) by run,
+# read beside the fused scale's: the kernels line's launches_by_path for
+# ball_query_cuda and three_nn_cuda
+NBR_LAUNCHES: dict = {}
+# a net's pass (float32 clouds, in every compute dtype): sa1's and sa2's
+# ball queries, fp2's and fp1's 3-NN (fp3 broadcasts)
+NBR_STAGES = {"ball_query_cuda": 2, "three_nn_cuda": 2}
+
+
 def reset_launches() -> None:
-    """Zero the hand-written kernels' launch counters: FPS's and the fused
-    set-abstraction scale's."""
-    from captra_tpu_torch.ops import fps, sa_mlp
+    """Zero the hand-written kernels' launch counters: FPS's, the fused
+    set-abstraction scale's and the neighbour selection's."""
+    from captra_tpu_torch.ops import fps, neighbors, sa_mlp
     fps.reset_launch_counts()
     sa_mlp.reset_launch_counts()
+    neighbors.reset_launch_counts()
 
 
 def read_sa(path: str) -> int:
     """The fused scale's launches since `reset_launches`, added to
-    SA_LAUNCHES[path]."""
+    SA_LAUNCHES[path]; the neighbour kernels' are added to
+    NBR_LAUNCHES[path] (`read_nbr`)."""
     from captra_tpu_torch.ops import sa_mlp
     n = sa_mlp.launch_counts["sa_mlp_cuda"]
     SA_LAUNCHES[path] = SA_LAUNCHES.get(path, 0) + n
+    read_nbr(path)
     return n
+
+
+def read_nbr(path: str) -> None:
+    """Add the neighbour kernels' launches since `reset_launches` to
+    NBR_LAUNCHES[path]."""
+    from captra_tpu_torch.ops import neighbors
+    total = NBR_LAUNCHES.setdefault(path, dict.fromkeys(
+        neighbors.launch_counts, 0))
+    for k, v in neighbors.launch_counts.items():
+        total[k] += v
+
+
+def check_nbr(name: str, got: dict, passes: int, dev: torch.device) -> None:
+    """A run's neighbour-kernel launches: NBR_STAGES a net a pass, for
+    `passes` net passes in all (on the card: the CPU takes the twins)."""
+    want = {k: n * passes for k, n in NBR_STAGES.items()}
+    if dev.type == "cuda" and got != want:
+        raise AssertionError(f"{name}: neighbour kernel launches {got}, "
+                             f"expected {want}")
 
 
 def check_sa(name: str, got: int, want: int, dev: torch.device) -> None:
@@ -884,6 +922,160 @@ def phase_sa_mlp() -> list:
     return rows
 
 
+# the batches the paths give a backbone's neighbour searches: (where,
+# clouds, CoordNet's strided cloud)
+NBR_CELLS = (
+    ("bottle CoordNet, B=16 (points and OTF)", 16, True),
+    ("bottle RotNet, B=16 (points and OTF)", 16, False),
+    ("drawers CoordNet, B=8", 8, True),
+    ("drawers RotNet, 8 streams x 4 parts", 32, False),
+    ("CoordNet training, batch 12", 12, True),
+    ("the GT-less init's search, K=64", 64, True),
+)
+
+
+def nbr_bound_ms(B, S, N, out_bytes_a_row) -> float:
+    """Least time of one selection on this card: the product [B, S, N] and
+    the two norm vectors read once, the indices (and 3-NN distances)
+    written once, at the HBM peak (a few operations a byte: bound by the
+    bytes)."""
+    nbytes = 4 * (B * S * N + B * S + B * N) + B * S * out_bytes_a_row
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_neighbors() -> list:
+    """The neighbour selection kernels at every stage and batch the paths
+    give a backbone: indices (and 3-NN distances) against the chain on the
+    card bit for bit; the kernel's time, its plain twin's from the same
+    product (`ball_query_plain` / `three_nn_plain`), the chain's with its
+    product a radius (`library_ms`: what the stage ran before), the
+    product's (`pointops.distance_terms`, kept) and the bound (CUDA
+    events)."""
+    from captra_tpu_torch.config.presets import nocs_bottle
+    from captra_tpu_torch.ops import cuda_build, neighbors, pointops
+    t0 = time.perf_counter()
+    cuda_build.build([neighbors.SOURCE])
+    log(f"build {neighbors.SOURCE}: {time.perf_counter() - t0:.2f} s")
+    for line in cuda_build.ptxas_usage(neighbors.SOURCE):
+        log(f"  ptxas: {line}")
+    pn = nocs_bottle().pointnet
+    rows = []
+    for where, B, strided in NBR_CELLS:
+        rng = np.random.RandomState(B + strided)
+        planes = torch.from_numpy(((rng.rand(B, 3, 4096) - 0.5) * 0.6)
+                                  .astype(np.float32)).cuda()
+        l0 = planes.transpose(1, 2)
+        l0 = l0 if strided else l0.contiguous()
+        l1 = pointops.gather_xyz(l0, pointops.farthest_point_sample(
+            l0.contiguous(), pn.sa1.npoint))
+        l2 = pointops.gather_xyz(l1, pointops.farthest_point_sample(
+            l1, pn.sa2.npoint))
+        stages = (("sa1", pn.sa1, l0, l1), ("sa2", pn.sa2, l1, l2),
+                  ("fp2", None, l1, l2), ("fp1", None, l0, l1))
+        for stage, cfg, fine, coarse in stages:
+            if cfg is not None:
+                radii, ks = cfg.radius_list, cfg.nsample_list
+                src, dst = coarse, fine
+                name, out_bytes = "ball_query_cuda", 8 * sum(ks)
+
+                def kernel(terms):
+                    return neighbors.ball_query_cuda(*terms, radii, ks)
+
+                def plain(terms):
+                    return neighbors.ball_query_plain(*terms, radii, ks)
+
+                def chain():
+                    return [pointops.ball_query(r, k, dst, src)
+                            for r, k in zip(radii, ks)]
+                chain_launches = 16 * len(radii)
+            else:
+                src, dst = fine, coarse
+                name, out_bytes = "three_nn_cuda", 3 * (4 + 8)
+
+                def kernel(terms):
+                    return neighbors.three_nn_cuda(*terms)
+
+                def plain(terms):
+                    return neighbors.three_nn_plain(
+                        *(t.clone() for t in terms))
+
+                def chain():
+                    return pointops.three_nn(src, dst)
+                chain_launches = 18
+            terms = pointops.distance_terms(src, dst)
+            got, want = kernel(terms), chain()
+            if cfg is not None:
+                idx_pairs, dists = list(zip(got, want)), []
+            else:
+                idx_pairs, dists = [(got[1], want[1])], [(got[0], want[0])]
+            # indices that differ, the largest |index gap| and the largest
+            # |3-NN distance gap|: each 0 when the kernel is the chain's
+            differ = sum(int((g != w).sum()) for g, w in idx_pairs)
+            idx_err = max(int((g - w).abs().max()) for g, w in idx_pairs)
+            dist_err = max([float((g - w).abs().max()) for g, w in dists],
+                           default=0.0)
+            if differ or dist_err != 0.0:
+                raise AssertionError(f"{name} {where} {stage}: {differ} "
+                                     "indices differ from the chain's, "
+                                     f"distances by up to {dist_err:.3g}")
+            k_ms = time_ms(lambda: kernel(terms), reps=20)
+            p_ms = time_ms(lambda: plain(terms), reps=10,
+                           launches=chain_launches)
+            c_ms = time_ms(chain, reps=10, launches=chain_launches)
+            d_ms = time_ms(lambda: pointops.distance_terms(src, dst),
+                           reps=20, launches=5)
+            S, N = src.shape[1], dst.shape[1]
+            bound = nbr_bound_ms(B, S, N, out_bytes)
+            row = dict(kernel=name, where=where, stage=stage, B=B, S=S,
+                       N=N, strided=strided and stage in ("sa1", "fp1"),
+                       kernel_ms=k_ms, plain_ms=p_ms, chain_ms=c_ms,
+                       product_ms=d_ms, bound_ms=bound, idx_differ=differ,
+                       idx_abs_err=idx_err, dist_abs_err=dist_err)
+            rows.append(row)
+            log(f"kernel {name} {where} {stage} [{B},{S},{N}]: {k_ms:.4f} "
+                f"ms, bound {bound:.4f} ms (bytes, {100 * bound / k_ms:.1f}"
+                f"%), plain twin {p_ms:.4f} ms, the chain it replaces "
+                f"{c_ms:.4f} ms, the product kept {d_ms:.4f} ms; {differ} "
+                f"indices differ from the chain's, distances by "
+                f"{dist_err:.3g}")
+    return rows
+
+
+def neighbor_entries(rows: list) -> list:
+    """The kernels line's entries of the two selection kernels: the
+    headline is a step's stages of the first cell (bottle CoordNet)."""
+    out = []
+    for name in ("ball_query_cuda", "three_nn_cuda"):
+        mine = [r for r in rows if r["kernel"] == name]
+        head = [r for r in mine if r["where"] == NBR_CELLS[0][0]]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "captra_tpu_torch/csrc/neighbors.cu",
+            "replaces": "captra_tpu/ops/pointops.py "
+                        + ("ball_query" if name == "ball_query_cuda"
+                           else "three_nn")
+                        + " (exact route; no Pallas kernel)",
+            "launches": sum(v.get(name, 0) for v in NBR_LAUNCHES.values()),
+            # the largest over every shape: |index gap| for the ball
+            # query, |distance gap| for the 3-NN (its indices: idx_differ)
+            "max_abs_err": max(r["idx_abs_err"] if name == "ball_query_cuda"
+                               else r["dist_abs_err"] for r in mine),
+            "idx_differ": max(r["idx_differ"] for r in mine),
+            "ms": sum(r["kernel_ms"] for r in head),
+            "plain_ms": sum(r["plain_ms"] for r in head),
+            "bound_ms": sum(r["bound_ms"] for r in head),
+            "bound_by": "bytes",
+            "library_ms": sum(r["chain_ms"] for r in head),
+            "product_ms": sum(r["product_ms"] for r in head),
+            "at": f"{NBR_CELLS[0][0]}, a pass's "
+                  + "/".join(r["stage"] for r in head),
+            "launches_by_path": {k: v.get(name, 0)
+                                 for k, v in NBR_LAUNCHES.items()},
+            "shapes": mine,
+        })
+    return out
+
+
 @contextlib.contextmanager
 def plain_fps_on_card():
     """Route the point ops' FPS to the plain version for one comparison run
@@ -957,13 +1149,14 @@ def timed_run(name: str, track, B: int, frames: int, dev: torch.device,
     POSE_TOL (labels equal) of the same trajectory with the plain FPS on
     the card, and with `profile` a profiler window of 3 steps.  Returns the
     run's record and the last timed trajectory's aux."""
-    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.ops import fps, neighbors
     track(3)                                          # warm-up
     sync(dev)
     reset_launches()
     steps_ms, aux = time_track(lambda: track(frames), frames - 1, dev)
     launches = dict(fps.launch_counts)
     sa = read_sa(name.replace(" ", "_"))
+    nbr = dict(neighbors.launch_counts)
     for f in ("rotation", "translation", "scale"):
         if not bool(torch.isfinite(getattr(aux.pose, f)).all()):
             raise AssertionError(f"{name}: non-finite {f}")
@@ -978,7 +1171,8 @@ def timed_run(name: str, track, B: int, frames: int, dev: torch.device,
     prof = (profile_window(lambda: track(4), 3, B, profile,
                            tag=name.replace(" ", "_")) if profile else None)
     ms = float(np.median(steps_ms))
-    return dict(B=B, launches=launches, sa_launches=sa, ms_per_step=ms,
+    return dict(B=B, launches=launches, sa_launches=sa,
+                nbr_launches=nbr, ms_per_step=ms,
                 ms_per_step_runs=steps_ms, frames_per_s=B * 1e3 / ms,
                 plain_fps_diff=diff, profile=prof), aux
 
@@ -1115,6 +1309,9 @@ def check_launches(sliced: dict, runs=SLICE_RUNS, frames: int = T) -> None:
         nets = 0 if name.startswith(BF16_PREFIX) else 2
         check_sa(f"slice {name}", sliced["runs"][name]["sa_launches"],
                  nets * SA_SCALES * passes * tracked, torch.device("cuda"))
+        # the clouds stay float32 in bfloat16 nets: 2 nets in every run
+        check_nbr(f"slice {name}", sliced["runs"][name]["nbr_launches"],
+                  2 * passes * tracked, torch.device("cuda"))
     for name in SLICE_KERNELS:
         if sliced["launches"][name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
@@ -1380,6 +1577,8 @@ def check_otf_launches(otf: dict, frames: int = T) -> None:
         nets = 0 if name.startswith(BF16_PREFIX) else 2
         check_sa(f"otf {name}", run["sa_launches"],
                  nets * SA_SCALES * tracked, torch.device("cuda"))
+        check_nbr(f"otf {name}", run["nbr_launches"], 2 * tracked,
+                  torch.device("cuda"))
 
 
 @contextlib.contextmanager
@@ -1421,7 +1620,7 @@ def phase_init_search(config=None, device: str = "cuda",
     from captra_tpu_torch.data.synthetic import (
         batch_trajectories, make_trajectory,
     )
-    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.ops import fps, neighbors
     from captra_tpu_torch.tracking.tracker import (
         init_pose_from_cloud, make_track_step, search_init_orientation,
         track_trajectory,
@@ -1460,6 +1659,7 @@ def phase_init_search(config=None, device: str = "cuda",
         search_ms.append((time.perf_counter() - t0) * 1e3)
     launches = dict(fps.launch_counts)
     sa = read_sa("init_search")
+    nbr = dict(neighbors.launch_counts)
     with plain_fps_on_card():
         plain_found = search()
     diff = _max_pose_diff(found, plain_found)
@@ -1478,9 +1678,11 @@ def phase_init_search(config=None, device: str = "cuda",
     if dev.type == "cuda" and sa != SA_SCALES * passes * REPEATS:
         raise AssertionError(f"init_search: {sa} sa_mlp_cuda launches, "
                              f"expected {SA_SCALES * passes * REPEATS}")
+    check_nbr("init_search", nbr, passes * REPEATS, dev)
     ms = float(np.median(search_ms))
     out = {"search": dict(B=1, K=INIT_SEARCH_K, ms=ms, ms_runs=search_ms,
                           launches=launches, sa_launches=sa,
+                          nbr_launches=nbr,
                           plain_fps_diff=diff)}
     log(f"init_search: K={INIT_SEARCH_K} candidates, {passes} passes, "
         f"{ms:.2f} ms a search (median of {REPEATS}; min {min(search_ms):.2f}"
@@ -1506,6 +1708,8 @@ def phase_init_search(config=None, device: str = "cuda",
                              f"{got}")
     check_sa("init_search track_b1", out["track_b1"]["sa_launches"],
              2 * SA_SCALES * REPEATS * (frames - 1), dev)
+    check_nbr("init_search track_b1", out["track_b1"]["nbr_launches"],
+              2 * REPEATS * (frames - 1), dev)
     if kernels is not None:
         calls = {}
         with recording_fps(calls):
@@ -4089,6 +4293,8 @@ def main() -> int:
     lap("kernels")
     sa_rows = phase_sa_mlp()
     lap("sa_mlp")
+    nbr_rows = phase_neighbors()
+    lap("neighbors")
     sliced = phase_slice(profile=args.profile)
     check_launches(sliced)
     lap("slice")
@@ -4184,6 +4390,7 @@ def main() -> int:
         "launches_by_path": dict(SA_LAUNCHES),
         "shapes": sa_rows,
     })
+    line.extend(neighbor_entries(nbr_rows))
     log(json.dumps({"slice": sliced}))
     log(json.dumps({"otf": otf}))
     log(json.dumps({"init_search": init}))

@@ -45,7 +45,7 @@ from captra_tpu_torch.config.presets import (
 from captra_tpu_torch.models.backbone import PointNet2Msg
 from captra_tpu_torch.models.blocks import PointMLP, compute_dtype
 from captra_tpu_torch.models.coordnet import CoordNet
-from captra_tpu_torch.ops import pointops
+from captra_tpu_torch.ops import neighbors, pointops
 from captra_tpu_torch.pose.part_dof import Pose
 from captra_tpu_torch.tracking.tracker import (
     make_track_step, track_trajectory,
@@ -143,20 +143,23 @@ def test_bf16_backbone_indices_equal_jax(monkeypatch):
     net = coordnet_from_flax(_low(tiny_config(tschema)), v, device="cpu")
     fps_calls, ball_calls = [], []
     fps, ball = (pointops.farthest_point_sample_indices,
-                 pointops.ball_query)
+                 neighbors.ball_query_stage)
 
     def rec_fps(x, npoint):
         out = fps(x, npoint)
         fps_calls.append((x.clone(), npoint, out))
         return out
 
-    def rec_ball(radius, nsample, x, new_x):
-        out = ball(radius, nsample, x, new_x)
-        ball_calls.append((radius, nsample, x.clone(), new_x.clone(), out))
-        return out
+    def rec_ball(radii, nsamples, x, new_x):
+        # a stage's radii from one distance product: a call a radius
+        outs = ball(radii, nsamples, x, new_x)
+        ball_calls.extend((radius, nsample, x.clone(), new_x.clone(), out)
+                          for radius, nsample, out in zip(radii, nsamples,
+                                                          outs))
+        return outs
 
     monkeypatch.setattr(pointops, "farthest_point_sample_indices", rec_fps)
-    monkeypatch.setattr(pointops, "ball_query", rec_ball)
+    monkeypatch.setattr(neighbors, "ball_query_stage", rec_ball)
     net(torch.from_numpy(xyz))
     pn = cfg.pointnet
     assert len(fps_calls) == 2

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card: FPS against the plain PyTorch FPS, the
-fused set-abstraction scale against the module chain.
+fused set-abstraction scale against the module chain, the neighbour
+selection against the chain's ball query and 3-NN.
 
 These tests need an NVIDIA card and the CUDA toolkit: the kernels have no
 CPU mode, so without a card each test skips with that reason.  This file
@@ -899,3 +900,258 @@ def test_track_step_with_the_kernel_is_within_the_bench_limits(
             assert float(d.max()) <= limits[k], k
     # CoordNet's and RotNet's sa1 and sa2: 5 scales a net a step
     assert sa_mlp.launch_counts["sa_mlp_cuda"] == 3 * 2 * 5
+
+
+# ---------------------------------------------------------------------------
+# the neighbour selection (csrc/neighbors.cu)
+# ---------------------------------------------------------------------------
+
+# the batches the paths give a backbone: bottle CoordNet and RotNet (16),
+# drawers CoordNet (8) and RotNet (32 = 8 streams x 4 parts), training
+# (12), the GT-less init's search (64 candidates)
+NBR_BATCHES = (16, 8, 32, 12, 64)
+
+
+def _nbr_cloud(B, N, seed, device, strided=False):
+    """B clouds of N points in a box of side 0.6 (the radii's scale);
+    `strided`: a [B, N, 3] view of [B, 3, N], CoordNet's cloud."""
+    rng = np.random.RandomState(seed)
+    planes = torch.from_numpy(((rng.rand(B, 3, N) - 0.5) * 0.6)
+                              .astype(np.float32)).to(device)
+    xyz = planes.transpose(1, 2)
+    return xyz if strided else xyz.contiguous()
+
+
+def _nbr_centres(xyz, S):
+    return ops.gather_xyz(xyz, ops.farthest_point_sample(xyz.contiguous(),
+                                                         S))
+
+
+def _through_the_chain(mp):
+    """Run a backbone's neighbour searches through the chain the kernels
+    replaced: `pointops.ball_query` a radius (its product a radius),
+    `pointops.three_nn`."""
+    from captra_tpu_torch.ops import neighbors, pointops
+
+    def ball_query_stage(radii, nsamples, xyz, new_xyz):
+        return [pointops.ball_query(r, k, xyz, new_xyz)
+                for r, k in zip(radii, nsamples)]
+    mp.setattr(neighbors, "ball_query_stage", ball_query_stage)
+    mp.setattr(neighbors, "three_nn_stage", pointops.three_nn)
+
+
+def _equal_or_nan(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("B", NBR_BATCHES)
+@pytest.mark.parametrize("stage,strided", [("sa1", False), ("sa1", True),
+                                           ("sa2", False)])
+def test_nbr_ball_kernel_equals_the_chain_at_the_paths_shapes(card, B, stage,
+                                                              strided):
+    from captra_tpu_torch.config.presets import nocs_bottle
+    from captra_tpu_torch.ops import neighbors, pointops
+    pn = nocs_bottle().pointnet
+    cfg, N = (pn.sa1, 4096) if stage == "sa1" else (pn.sa2, pn.sa1.npoint)
+    xyz = _nbr_cloud(B, N, B + N, card, strided)
+    new_xyz = _nbr_centres(xyz, cfg.npoint)
+    terms = pointops.distance_terms(new_xyz, xyz)
+    got = neighbors.ball_query_cuda(*terms, cfg.radius_list,
+                                    cfg.nsample_list)
+    chain = [pointops.ball_query(r, k, xyz, new_xyz)
+             for r, k in zip(cfg.radius_list, cfg.nsample_list)]
+    plain = neighbors.ball_query_plain(*terms, cfg.radius_list,
+                                       cfg.nsample_list)
+    for g, c, p in zip(got, chain, plain):
+        assert g.dtype == torch.int64 and torch.equal(g, c)
+        assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("B", NBR_BATCHES)
+@pytest.mark.parametrize("stage,strided", [("fp1", False), ("fp1", True),
+                                           ("fp2", False)])
+def test_nbr_three_nn_kernel_equals_the_chain_at_the_paths_shapes(
+        card, B, stage, strided):
+    from captra_tpu_torch.ops import neighbors, pointops
+    N, M = (4096, 512) if stage == "fp1" else (512, 128)
+    xyz1 = _nbr_cloud(B, N, B + M, card, strided)
+    xyz2 = _nbr_centres(xyz1, M)
+    terms = pointops.distance_terms(xyz1, xyz2)
+    d, i = neighbors.three_nn_cuda(*terms)
+    want_d, want_i = pointops.three_nn(xyz1, xyz2)
+    assert i.dtype == torch.int64 and torch.equal(i, want_i)
+    assert d.dtype == torch.float32 and torch.equal(d, want_d)
+
+
+@pytest.mark.parametrize("case", ["edge", "empty", "few", "ragged",
+                                  "unaligned", "four_radii", "k_is_n"])
+def test_nbr_ball_kernel_edges(card, case):
+    from captra_tpu_torch.ops import neighbors, pointops
+    radii, ks = (0.05, 0.1, 0.2), (32, 64, 128)
+    if case == "edge":
+        # exact arithmetic: d = 0.25 = r^2 for the points at 1.0 e_x
+        xyz = torch.tensor([[[1.0, 0.0, 0.0], [1.0 + 2 ** -20, 0.0, 0.0],
+                             [0.0, 3.0, 0.0], [1.0, 0.0, 0.0]] * 40],
+                           device=card)
+        new_xyz = torch.tensor([[[0.5, 0.0, 0.0], [1.0, 0.0, 0.0]]],
+                               device=card)
+        radii, ks = (0.5, 0.4999), (50, 3)
+    else:
+        xyz = _nbr_cloud(3, {"ragged": 1001, "few": 700}.get(case, 512), 9,
+                         card)
+        new_xyz = _nbr_centres(xyz, 37)
+        if case == "empty":
+            new_xyz = new_xyz + 10.0
+        elif case == "few":
+            radii = (0.005, 0.01, 0.02)
+        elif case == "four_radii":
+            radii, ks = (0.02, 0.05, 0.1, 0.3), (1, 5, 64, 100)
+        elif case == "k_is_n":
+            radii, ks = (0.1, 2.0), (512, 512)
+    terms = list(pointops.distance_terms(new_xyz, xyz))
+    if case == "unaligned":
+        # the product one float past a 16-byte boundary: scalar loads
+        off = torch.empty(terms[0].numel() + 1, device=card)[1:]
+        terms[0] = off.view(terms[0].shape).copy_(terms[0])
+        assert terms[0].data_ptr() % 16
+    got = neighbors.ball_query_cuda(*terms, radii, ks)
+    want = neighbors.ball_query_plain(*terms, radii, ks)
+    chain = [pointops.ball_query(r, k, xyz, new_xyz)
+             for r, k in zip(radii, ks)]
+    for g, w, c in zip(got, want, chain):
+        assert torch.equal(g, w) and torch.equal(g, c)
+    if case == "empty":
+        assert all(bool((g == 0).all()) for g in got)
+    if case == "edge":
+        assert got[0][0, 0, :3].tolist() == [0, 3, 4]
+        assert got[1][0, 0].tolist() == [0, 0, 0]
+
+
+@pytest.mark.parametrize("case", ["ties", "m1", "m2", "m3", "ragged",
+                                  "inf", "nan"])
+def test_nbr_three_nn_kernel_edges(card, case):
+    from captra_tpu_torch.ops import neighbors, pointops
+    if case == "ties":
+        g = torch.arange(4, dtype=torch.float32, device=card) * 0.25
+        coarse = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1
+                             ).reshape(1, -1, 3)
+        xyz2 = torch.cat([coarse, coarse], 1)
+        xyz1 = xyz2[:, :64] + torch.tensor([0.125, 0.0, 0.0], device=card)
+    else:
+        M = {"m1": 1, "m2": 2, "m3": 3, "ragged": 130}.get(case, 64)
+        xyz1 = _nbr_cloud(2, 301, 11, card)
+        xyz2 = _nbr_centres(xyz1, M)
+    terms = list(pointops.distance_terms(xyz1, xyz2))
+    if case in ("inf", "nan"):
+        # distances of +inf (-2 x a product of -inf; fewer than 3 finite
+        # entries in some rows) or NaN
+        bad = float("-inf") if case == "inf" else float("nan")
+        prod = terms[0]
+        prod[:, ::3, 2:] = bad
+        prod[:, 1::3, :] = bad
+        prod[:, 2::7, 5] = bad
+    d, i = neighbors.three_nn_cuda(*terms)
+    want_d, want_i = neighbors.three_nn_plain(*(t.clone() for t in terms))
+    assert torch.equal(i, want_i)
+    _equal_or_nan(d, want_d)
+    if case not in ("inf", "nan"):
+        chain_d, chain_i = pointops.three_nn(xyz1, xyz2)
+        assert torch.equal(i, chain_i) and torch.equal(d, chain_d)
+
+
+def test_nbr_kernels_refuse_what_they_cannot_take(card):
+    from captra_tpu_torch.ops import neighbors, pointops
+    xyz = _nbr_cloud(1, 64, 0, card)
+    prod, rs, cs = pointops.distance_terms(xyz[:, :4].contiguous(), xyz)
+    with pytest.raises(ValueError, match="CUDA"):
+        neighbors.ball_query_cuda(prod.cpu(), rs.cpu(), cs.cpu(), (0.1,),
+                                  (4,))
+    with pytest.raises(TypeError):
+        neighbors.three_nn_cuda(prod.double(), rs, cs)
+    with pytest.raises(ValueError, match="contiguous"):
+        neighbors.three_nn_cuda(prod.transpose(1, 2).contiguous()
+                                .transpose(1, 2), rs, cs)
+    with pytest.raises(ValueError, match="1..N"):
+        neighbors.ball_query_cuda(prod, rs, cs, (0.1,), (65,))
+    with pytest.raises(ValueError, match="radii"):
+        neighbors.ball_query_cuda(prod, rs, cs, (0.1,) * 5, (4,) * 5)
+    with pytest.raises(ValueError, match="agree"):
+        neighbors.three_nn_cuda(prod, rs, cs[:, :8].contiguous())
+
+
+@pytest.mark.parametrize("use_xyz_feat", [True, False])
+def test_nbr_backbone_launches_a_kernel_a_stage(card, use_xyz_feat,
+                                                monkeypatch):
+    # the pointnet2_camera backbone as the tracker calls it (CoordNet's
+    # cloud a [B, N, 3] view of [B, 3, N]) against the same net through the
+    # chain: equal bit for bit; a cloud that takes a gradient keeps the
+    # ball-query kernel (its clouds detached) and takes the 3-NN's twin
+    from captra_tpu_torch.config.presets import nocs_bottle
+    from captra_tpu_torch.models.backbone import PointNet2Msg
+    from captra_tpu_torch.ops import neighbors
+    torch.manual_seed(0)
+    net = PointNet2Msg(nocs_bottle().pointnet, 128,
+                       use_xyz_feat=use_xyz_feat).to(card).eval()
+    xyz = _nbr_cloud(2, 4096, 3, card, strided=use_xyz_feat)
+    neighbors.reset_launch_counts()
+    with torch.no_grad():
+        got = net(xyz)
+    assert neighbors.launch_counts == {"ball_query_cuda": 2,
+                                       "three_nn_cuda": 2}
+    with monkeypatch.context() as mp, torch.no_grad():
+        _through_the_chain(mp)
+        want = net(xyz)
+    assert torch.equal(got, want)
+    grad_xyz = xyz.detach().clone().requires_grad_(True)
+    got = net(grad_xyz)
+    assert neighbors.launch_counts == {"ball_query_cuda": 4,
+                                       "three_nn_cuda": 2}
+    with monkeypatch.context() as mp:
+        _through_the_chain(mp)
+        want = net(grad_xyz)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cell", ["bottle_points_b16", "drawers_points_b8"])
+def test_track_step_with_the_neighbour_kernels_equals_the_chain(
+        card, cell, monkeypatch):
+    """The benchmark's nets and traffic cut to 2 streams: a tracking step
+    with the neighbour kernels against the same step through the chain
+    (the path before the kernels), frame by frame from the same carried
+    pose: every output equal bit for bit, so every gap the benchmark
+    measures (port_bench/limits) equals the chain's."""
+    from port_bench.drivers import track
+    from port_bench.harness import Clock, Context, find_cell, load_spec
+
+    from captra_tpu_torch.ops import neighbors
+    c = find_cell(load_spec(), cell)
+    c.traffic = dict(c.traffic, streams=2, frames=4)
+    ctx = Context(cell=c, seed=2 ** 31 + 7, seconds=0.0, trace=False,
+                  device=card, clock=Clock(), log=lambda msg: None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s = track.setup(ctx)
+    loop, ranges = s["loop"], s["ranges"]
+    neighbors.reset_launch_counts()
+    for _ in range(3):
+        pose_in, f = loop.pose, loop.f
+        got = loop.advance(ranges)
+        launched = dict(neighbors.launch_counts)
+        with monkeypatch.context() as mp:
+            _through_the_chain(mp)
+            loop.pose, loop.f = pose_in, f
+            want = loop.advance(ranges)
+        assert neighbors.launch_counts == launched
+        new, aux, ref_new, ref_aux = got[2], got[3], want[2], want[3]
+        for name, a, b in (("seg", aux.seg, ref_aux.seg),
+                           ("nocs", aux.nocs, ref_aux.nocs),
+                           ("rotation", new.rotation, ref_new.rotation),
+                           ("translation", new.translation,
+                            ref_new.translation),
+                           ("scale", new.scale, ref_new.scale)):
+            print(f"frame {f} {name}: max |diff| "
+                  f"{float((a.double() - b.double()).abs().max()):.3g}")
+            assert torch.equal(a, b), name
+    # CoordNet's and RotNet's two ball-query and two 3-NN stages a step
+    assert neighbors.launch_counts == {"ball_query_cuda": 3 * 2 * 2,
+                                       "three_nn_cuda": 3 * 2 * 2}

@@ -4,7 +4,8 @@ spans in the tracking and training steps, on the CPU at
 
 With no profiler a step records nothing and `annotate` is the shared
 no-op; under `profiling.trace` a points step records `track.step` over
-`track.coordnet`, `track.rotnet` and `track.fit` (once a pass), an OTF step
+`track.coordnet`, `track.rotnet` and `track.fit` (once a pass), each net's
+span over its backbone's four `backbone.neighbors` stages, an OTF step
 adds `track.crop`, a train step records `train.step` over its forward,
 backward and optimizer, and the names show as user annotations in the
 Chrome trace; the store keeps its last 1024 roots; poses and losses are
@@ -34,6 +35,8 @@ from torch_port_helpers import tiny_config
 
 N, B = 256, 2
 PASS = ["track.coordnet", "track.rotnet", "track.fit"]
+# a backbone's neighbour searches: sa1, sa2, fp2 and fp1 (fp3 broadcasts)
+NEIGHBORS = ["backbone.neighbors"] * 4
 TRAIN = ["train.forward", "train.backward", "train.optimizer"]
 CAMERA = np.array([[120.0, 0.0, 64.0], [0.0, 120.0, 48.0], [0.0, 0.0, 1.0]],
                   np.float32)
@@ -146,8 +149,12 @@ def test_points_step_records_its_spans(tmp_path, refine_iters):
         assert _names(s) == PASS * refine_iters
         _no_card(s)
         assert s["host_ms"] >= sum(c["host_ms"] for c in s["children"]) > 0
-        assert all(c["step"] == s["step"] and c["children"] == []
-                   for c in s["children"])
+        for c in s["children"]:
+            assert c["step"] == s["step"]
+            assert _names(c) == ([] if c["name"] == "track.fit"
+                                 else NEIGHBORS)
+            assert all(g["step"] == s["step"] and g["children"] == []
+                       for g in c["children"])
     assert profiling.last_steps("track.step", 1) == spans[1:]
 
 
