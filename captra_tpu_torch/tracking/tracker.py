@@ -36,6 +36,11 @@ only while a profiler runs): `track.step` around it, and inside it
 `track.crop` (OTF), then a pass's `track.coordnet`, `track.rotnet` and
 `track.fit` around the nets' calls and the pose fit.
 
+On CUDA the step replays its body as one CUDA graph once it has seen a
+call's signature twice (`make_track_step` gives the rule), so a step costs
+the host a few copies and one graph launch instead of a few hundred kernel
+launches.  `graph_counts` counts the calls by path.
+
 Frame 0: `init_pose_from_gt` (noise draws explicit, as in
 `pose.part_dof.add_noise_to_pose`), or for GT-less captures
 `init_pose_from_cloud` and the orientation search
@@ -44,13 +49,15 @@ package's `captra_tpu/tracking/tracker.py`.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
+from torch._C._autograd import _profiler_enabled
 
-from captra_tpu_torch.config.schema import Config
+from captra_tpu_torch.config.schema import Config, TrackCfg
 from captra_tpu_torch.data.preprocess import (
     NOCS_REAL_INTRINSICS, backproject_depth_planes, crop_ball_batch_planes,
     intrinsics_tensor, select_detection_mask, unpack_detection_masks,
@@ -60,6 +67,7 @@ from captra_tpu_torch.models.coordnet import canonicalize
 from captra_tpu_torch.models.rotnet import (
     canonicalize_per_part, compose_track_pose, decode_rotation,
 )
+from captra_tpu_torch.ops import fps, neighbors, pointops, sa_mlp
 from captra_tpu_torch.pose import rotations as rot
 from captra_tpu_torch.pose.part_dof import (
     Pose, add_noise_to_pose, eval_part_full, tree_root,
@@ -67,7 +75,17 @@ from captra_tpu_torch.pose.part_dof import (
 from captra_tpu_torch.pose.pose_fit import filter_valid, labels_to_part_mask
 from captra_tpu_torch.pose.procrustes import gumbel_or_draw, similarity_fit
 from captra_tpu_torch.utils.precision import f32_precision
-from captra_tpu_torch.utils.profiling import annotate
+from captra_tpu_torch.utils.profiling import SyncCount, annotate
+
+# the calls of every step `make_track_step` built, by path: run eagerly,
+# captured into a CUDA graph (the call's answer is the capture's eager
+# warm-up), replayed from one
+graph_counts = {"eager": 0, "captured": 0, "replayed": 0}
+
+# the kernel wrappers' launch counters: a capture records how much each grew
+# and every replay adds that again, so a replayed step counts its launches
+_LAUNCH_COUNTERS = (fps.launch_counts, sa_mlp.launch_counts,
+                    neighbors.launch_counts)
 
 
 @dataclass
@@ -99,6 +117,195 @@ def _where_pose(cond: torch.Tensor, new: Pose, old: Pose) -> Pose:
                 sel(new.scale, old.scale))
 
 
+def eager_reason(device: torch.device, track: TrackCfg,
+                 frame: dict) -> str | None:
+    """Why a step call on `device` with `frame` runs eagerly, or None where
+    it may replay a CUDA graph.  A replay makes no Python call, so it runs
+    eagerly off CUDA, while a profiler records (the tracer's spans and
+    counters, and hooks on the step's calls, need them), while the point
+    ops' FPS entry is wrapped (a recorder, or the plain FPS swapped in),
+    where the frame needs a draw from the step's generator (an OTF frame
+    without "shift", RANSAC draws the frame does not carry), and where a
+    frame entry is not an array."""
+    if device.type != "cuda":
+        return "not a CUDA step"
+    if _profiler_enabled():
+        return "a profiler records"
+    if pointops.farthest_point_sample_indices \
+            is not fps.farthest_point_sample_indices:
+        return "the FPS entry is wrapped"
+    if track.nocs_otf and frame.get("shift") is None:
+        return "the crop draws its shifts"
+    if track.fit_ransac > 0 and (
+            frame.get("gumbel_fit") is None
+            or (track.rot_fit != "delta" and frame.get("gumbel_rot") is None)):
+        return "the fit draws its RANSAC hypotheses"
+    if not all(isinstance(v, (torch.Tensor, np.ndarray))
+               for v in frame.values()):
+        return "a frame entry is not an array"
+    return None
+
+
+def _tree_map(fn, tree):
+    """`tree` (tensors in tuples, dicts and dataclasses such as `Pose` and
+    `TrackAux`) with `fn` applied to each tensor."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _tree_map(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def _leaves(tree) -> list:
+    out = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def _span(x: torch.Tensor) -> torch.Tensor:
+    """The storage `x` covers, from its first element to its last, as one
+    flat view."""
+    n = 1 + sum((s - 1) * st for s, st in zip(x.shape, x.stride())) \
+        if x.numel() else 0
+    return x.as_strided((n,), (1,), x.storage_offset())
+
+
+def _buffer_like(x: torch.Tensor, device) -> torch.Tensor:
+    """A new tensor on `device` with the shape and strides of `x` (a
+    kernel may round otherwise on another layout)."""
+    base = torch.empty(_span(x).shape, dtype=x.dtype, device=device)
+    return base.as_strided(x.shape, x.stride())
+
+
+def _fresh(tree):
+    """Copies of the tensors of `tree`, each laid out as its original; a
+    tensor met twice (the pose in the aux) is copied once."""
+    copies = {}
+
+    def copy(x):
+        if id(x) not in copies:
+            copies[id(x)] = _span(x).clone().as_strided(x.shape, x.stride())
+        return copies[id(x)]
+    return _tree_map(copy, tree)
+
+
+def _layout(x: torch.Tensor) -> tuple:
+    return tuple(x.shape), x.stride(), x.dtype, x.device
+
+
+def _signature(carry, frame: dict) -> tuple:
+    """What a captured step is valid for: the layout of every carry and
+    frame tensor, the frame's keys, and the switches that choose kernels
+    (TF32, autocast, deterministic algorithms, the blocked FPS opt-in)."""
+    return (tuple(_layout(x) for x in _leaves(carry)),
+            tuple(sorted((k, _layout(v)) for k, v in frame.items())),
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.is_autocast_enabled("cuda"),
+            torch.get_autocast_dtype("cuda"),
+            torch.are_deterministic_algorithms_enabled(), fps.use_blocked())
+
+
+class _Graph:
+    """One captured step: its input buffers, its outputs and the launch
+    counts one step adds."""
+
+    def __init__(self, carry, frame: dict, device):
+        self.graph = torch.cuda.CUDAGraph()
+        self.carry = _tree_map(lambda x: _buffer_like(x, x.device), carry)
+        self.frame = {k: _buffer_like(v, device) for k, v in frame.items()}
+        self.out = None
+        self.growth = None
+
+    def load(self, carry, frame: dict) -> None:
+        """Copy a call's carry and frame into the input buffers."""
+        for buf, x in zip(_leaves(self.carry), _leaves(carry)):
+            _span(buf).copy_(_span(x))
+        for k, buf in self.frame.items():
+            _span(buf).copy_(_span(frame[k]))
+
+    def replay(self, carry, frame: dict):
+        self.load(carry, frame)
+        self.graph.replay()
+        for counts, grown in zip(_LAUNCH_COUNTERS, self.growth):
+            for k, n in grown.items():
+                counts[k] += n
+        graph_counts["replayed"] += 1
+        return _fresh(self.out)
+
+
+_SEEN, _EAGER = "seen", "eager"
+
+
+class _StepGraphs:
+    """The step's path by call signature: eager the first time, captured
+    the second, replayed after (see `make_track_step`)."""
+
+    def __init__(self, body: Callable, device: torch.device,
+                 track: TrackCfg):
+        self.body = body
+        self.device = device
+        self.track = track
+        self.graphs = {}      # signature -> _SEEN, _EAGER or a _Graph
+        self.stream = None
+
+    @torch.no_grad()
+    def __call__(self, carry, frame: dict):
+        if eager_reason(self.device, self.track, frame) is None:
+            arrays = {k: torch.as_tensor(v) for k, v in frame.items()}
+            sig = _signature(carry, arrays)
+            entry = self.graphs.get(sig)
+            if isinstance(entry, _Graph):
+                return entry.replay(carry, arrays)
+            if entry == _SEEN:
+                return self.capture(sig, carry, arrays)
+            if entry is None:
+                self.graphs[sig] = _SEEN
+        graph_counts["eager"] += 1
+        return self.body(carry, frame)
+
+    def capture(self, sig, carry, frame: dict):
+        """torch's pattern: a warm-up on a side stream (whose answer this
+        call returns), then the capture on it.  A body that synchronises
+        the host in its warm-up cannot be captured and stays eager."""
+        graph = _Graph(carry, frame, self.device)
+        graph.load(carry, frame)
+        main = torch.cuda.current_stream(self.device)
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            syncs = SyncCount()
+            try:
+                out = self.body(graph.carry, graph.frame)
+            finally:
+                synced = syncs.close()
+        main.wait_stream(self.stream)
+        result = _fresh(out)
+        del out
+        if synced:
+            self.graphs[sig] = _EAGER
+            graph_counts["eager"] += 1
+            return result
+        before = [dict(counts) for counts in _LAUNCH_COUNTERS]
+        with torch.cuda.graph(graph.graph, stream=self.stream):
+            graph.out = self.body(graph.carry, graph.frame)
+        # the capture launched nothing: its counts move to every replay
+        graph.growth = []
+        for counts, was in zip(_LAUNCH_COUNTERS, before):
+            graph.growth.append({k: counts[k] - was[k] for k in counts})
+            counts.update(was)
+        self.graphs[sig] = graph
+        graph_counts["captured"] += 1
+        return result
+
+
 def make_track_step(cfg: Config, coord_fn: Callable, rot_fn: Callable,
                     device=None, intrinsics=None,
                     generator: torch.Generator | None = None):
@@ -114,7 +321,29 @@ def make_track_step(cfg: Config, coord_fn: Callable, rot_fn: Callable,
     `generator` (on `device`) draws the shifts and the RANSAC draws of
     frames that carry none.  With `motion_model=const_vel` the step's carry
     is (pose, vel_rot, vel_t) and `step.init_carry(pose)` makes the first
-    one."""
+    one.
+
+    On CUDA the step replays its body as one CUDA graph.  A call's
+    signature is the layout (shape, strides, dtype, device) of every carry
+    and frame tensor, the frame's keys, and the switches that choose
+    kernels: TF32, autocast, deterministic algorithms, the blocked FPS
+    opt-in.  The first call with a signature runs eagerly (kernel builds
+    and lazy set-up happen there); the second runs the body on a side
+    stream, returns that answer and captures the body; every later call
+    copies the carry and frame into the graph's input buffers, replays it
+    and returns fresh copies of its outputs, which the caller may keep.
+    Each signature's graph is kept.  A call runs eagerly where
+    `eager_reason` gives a reason: off CUDA, while a profiler records,
+    while the FPS entry is wrapped, where the frame needs a draw from
+    `generator` (an OTF frame without "shift", or `fit_ransac > 0` without
+    the frame's draws), or where a frame entry is not an array; so does a
+    signature whose body synchronises the host.  A replay reads the nets'
+    parameters and buffers from the storage they had at capture, and takes
+    the nets' Python-side choices (train or eval mode) of the capture:
+    in-place updates (an optimizer's step, `load_state_dict`, BatchNorm's
+    running statistics) are followed, a parameter given new storage
+    (`p.data = ...`) or a net switched to another mode is not, so build a
+    new step after either."""
     device = resolve_device(device)
     obj = cfg.obj
     root = tree_root(obj.tree)
@@ -271,7 +500,7 @@ def make_track_step(cfg: Config, coord_fn: Callable, rot_fn: Callable,
             return new_pose, aux
 
     if track.motion_model != "const_vel":
-        return step
+        return _StepGraphs(step, device, track)
 
     # carry (pose, vel_rot [B,P,3,3], vel_t [B,P,3,1]): the nets see the pose
     # advanced by gain x the low-passed world-frame velocity, the fitted pose
@@ -302,8 +531,9 @@ def make_track_step(cfg: Config, coord_fn: Callable, rot_fn: Callable,
                     init_pose.rotation.shape),
                 torch.zeros_like(init_pose.translation))
 
-    step_cv.init_carry = init_carry
-    return step_cv
+    graphed = _StepGraphs(step_cv, device, track)
+    graphed.init_carry = init_carry
+    return graphed
 
 
 @f32_precision

@@ -59,7 +59,7 @@ def trace(log_dir: str):
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-class _SyncCount:
+class SyncCount:
     """From construction to `close()`: CUDA's sync debug mode set to warn
     (where it was off) and the warnings caught.  `close` restores both and
     returns the number of synchronising calls; it passes on every other
@@ -117,7 +117,7 @@ class Span:
             self.events = tracer.take_events()
             self.events[1].record()
             if self.parent is None:
-                self._syncs = _SyncCount()
+                self._syncs = SyncCount()
         stack.append(self)
         return self
 

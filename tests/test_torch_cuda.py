@@ -851,6 +851,18 @@ def test_sa_kernel_refuses_what_it_cannot_take(card):
         wide(_sa_inputs(1, 256, 0, 0, card)[0], None)
 
 
+def _eager_step(s, cell, card, pose, f):
+    """The bench loop's step from `pose` on frame `f`, made anew from the
+    loop's nets: its one call runs eagerly, so it takes a route the test
+    patched (the loop's own step replays the graph it captured)."""
+    from port_bench.drivers import track
+
+    from captra_tpu_torch.tracking.tracker import make_track_step
+    pcfg = track.port_config(cell.config, cell.traffic.get("track", {}))
+    step = make_track_step(pcfg, *s["nets"], device=card)
+    return step(pose, {k: v[f] for k, v in s["frames"].items()})
+
+
 @pytest.mark.parametrize("cell", ["bottle_points_b16", "drawers_points_b8"])
 def test_track_step_with_the_kernel_is_within_the_bench_limits(
         card, cell, monkeypatch):
@@ -882,10 +894,9 @@ def test_track_step_with_the_kernel_is_within_the_bench_limits(
         with monkeypatch.context() as mp:
             mp.setattr(SetAbstractionMsg, "fused",
                        lambda self, xyz, feats: False)
-            loop.pose, loop.f = pose_in, f
-            want = loop.advance(ranges)
+            ref_new, ref_aux = _eager_step(s, c, card, pose_in, f)
         assert sa_mlp.launch_counts["sa_mlp_cuda"] == launched
-        new, aux, ref_new, ref_aux = got[2], got[3], want[2], want[3]
+        new, aux = got[2], got[3]
         gaps = {"seg_gap": (aux.seg, ref_aux.seg, False),
                 "nocs_gap": (aux.nocs, ref_aux.nocs, False),
                 "rot_gap": (new.rotation, ref_new.rotation, False),
@@ -1139,10 +1150,9 @@ def test_track_step_with_the_neighbour_kernels_equals_the_chain(
         launched = dict(neighbors.launch_counts)
         with monkeypatch.context() as mp:
             _through_the_chain(mp)
-            loop.pose, loop.f = pose_in, f
-            want = loop.advance(ranges)
+            ref_new, ref_aux = _eager_step(s, c, card, pose_in, f)
         assert neighbors.launch_counts == launched
-        new, aux, ref_new, ref_aux = got[2], got[3], want[2], want[3]
+        new, aux = got[2], got[3]
         for name, a, b in (("seg", aux.seg, ref_aux.seg),
                            ("nocs", aux.nocs, ref_aux.nocs),
                            ("rotation", new.rotation, ref_new.rotation),
