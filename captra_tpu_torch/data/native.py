@@ -26,27 +26,15 @@ def lib() -> ctypes.CDLL:
     """The loaded host core, built first if needed."""
     global _LIB
     if _LIB is None:
-        core = cuda_build.load(SOURCE)
-        i64 = ctypes.c_int64
-        core.captra_host_fps.argtypes = [ctypes.c_void_p, i64, i64, i64,
-                                         ctypes.c_void_p]
-        core.captra_host_fps.restype = None
-        core.captra_host_png_unfilter.argtypes = [ctypes.c_void_p, i64, i64,
-                                                  i64, ctypes.c_void_p]
-        core.captra_host_png_unfilter.restype = i64
-        core.captra_host_dist_to_center.argtypes = [ctypes.c_void_p, i64,
-                                                    ctypes.c_void_p,
-                                                    ctypes.c_void_p]
-        core.captra_host_dist_to_center.restype = None
-        core.captra_host_ball_indices.argtypes = [ctypes.c_void_p, i64,
-                                                  ctypes.c_float,
-                                                  ctypes.c_void_p, i64]
-        core.captra_host_ball_indices.restype = i64
-        core.captra_host_backproject.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, i64, i64, ctypes.c_void_p,
-            ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p]
-        core.captra_host_backproject.restype = i64
-        _LIB = core
+        i64, ptr = ctypes.c_int64, ctypes.c_void_p
+        _LIB = cuda_build.bind(SOURCE, {
+            "captra_host_fps": (None, ptr, i64, i64, i64, ptr),
+            "captra_host_png_unfilter": (i64, ptr, i64, i64, i64, ptr),
+            "captra_host_dist_to_center": (None, ptr, i64, ptr, ptr),
+            "captra_host_ball_indices": (i64, ptr, i64, ctypes.c_float, ptr,
+                                         i64),
+            "captra_host_backproject": (i64, ptr, ptr, i64, i64, ptr,
+                                        ctypes.c_double, ptr, ptr)})
     return _LIB
 
 

@@ -12,12 +12,15 @@ A stage's neighbour search (every radius of a set-abstraction stage, a
 propagation stage's 3-NN) takes `ops.neighbors`: one distance product a
 stage, then one hand-written selection kernel for float32 CUDA clouds
 that take no gradient (in training too), its plain twin for any other
-input; each runs inside a `backbone.neighbors` span.  A set-abstraction scale in eval
-mode with BatchNorm, float32 and no gradient wanted takes
+input; each runs inside a `backbone.neighbors` span.  A set-abstraction
+scale in eval mode with BatchNorm, float32 and no gradient wanted takes
 `ops.sa_mlp.sa_scale` (on CUDA one hand-written kernel: gather, MLP and
 max-pool with no grouped activation in device memory; on the CPU its plain
 twin, today's arithmetic); any other scale runs the module chain
-(`SetAbstractionMsg.fused`)."""
+(`SetAbstractionMsg.fused`).  Both kernels route by the one rule of
+`ops.cuda_build.takes_kernel`.  The tracer's denominators are counted
+here, `nbr_stages` once a stage and `sa_scales` once a scale; the kernels'
+`nbr_fused` and `sa_fused` are counted at their launches."""
 from __future__ import annotations
 
 import torch
@@ -79,11 +82,11 @@ class SetAbstractionMsg(nn.Module):
             profiling.count("nbr_stages")
             idxs = neighbors.ball_query_stage(
                 self.cfg.radius_list, self.cfg.nsample_list, xyz, new_xyz)
+        profiling.count("sa_scales", len(idxs))
         if self.fused(xyz, feats):
             return new_xyz, self._fused_scales(xyz, new_xyz, feats, idxs)
         outs = []
         for i, idx in enumerate(idxs):
-            profiling.count("sa_scales")
             g = ops.group_ball(idx, xyz, new_xyz, feats)
             g = getattr(self, f"scale_{i}")(g)
             outs.append(torch.amax(g, dim=2))  # [B, S, C]
@@ -98,7 +101,6 @@ class SetAbstractionMsg(nn.Module):
         out = xyz.new_empty((B, S, self.out_dim))
         offset = 0
         for i, idx in enumerate(idxs):
-            profiling.count("sa_scales")
             mlp = getattr(self, f"scale_{i}")
             sa_mlp.sa_scale(rows, new_xyz, feats, idx, scale_layers(mlp),
                             out, offset)

@@ -1,4 +1,5 @@
-"""Build the port's native sources at first use and load them with ctypes.
+"""Build the port's native sources at first use and load them with ctypes;
+the one seam behind the hand-written CUDA kernels.
 
 Each `csrc/` file has a plain C interface and is compiled into its own
 shared library under `captra_tpu_torch/_build/`, named by a hash of the
@@ -8,10 +9,22 @@ core of `data/native.py`).  Nothing here runs at import time: a compiler is
 looked up and run only when a library is first needed, so the package
 imports on hosts with no toolkit.  A failed build raises with the
 compiler's output.
+
+Every kernel module (`fps`, `sa_mlp`, `neighbors`) describes its source's C
+entries to one `Kernels` and launches through it: the source is built and
+bound at first use, its constants checked against the wrapper's, a kernel
+launched on the current stream of its tensors' device, a non-zero return
+raised with the library's own error string, and each launch counted in the
+one registry `launch_counts` (and in the tracer counter the kernel
+registered, `utils/profiling.count`).  `takes_kernel` is the one rule that
+sends an input to a kernel or to its plain twin.  A new kernel module
+plugs in here and nowhere else: the tracking step's CUDA graph reads only
+the registry.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -19,6 +32,11 @@ import shutil
 import subprocess
 import threading
 import time
+from collections.abc import Mapping
+
+import torch
+
+from captra_tpu_torch.utils import profiling
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -140,3 +158,131 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             _loaded[name] = ctypes.CDLL(_target(name)[1])
         return _loaded[name]
+
+
+INT, PTR = ctypes.c_int, ctypes.c_void_p
+
+
+def bind(source: str, entries: dict[str, tuple],
+         expect: dict[str, int] | None = None) -> ctypes.CDLL:
+    """`load(source)` with each C entry's restype and argtypes set from
+    `entries` (entry -> (restype, *argtypes)).  `expect` maps entries that
+    take nothing and return an int to the values the wrapper was written
+    for; a library built with others raises with both tuples."""
+    expect = expect or {}
+    lib = load(source)
+    for name, (restype, *argtypes) in {**dict.fromkeys(expect, (INT,)),
+                                       **entries}.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
+    built = tuple(getattr(lib, name)() for name in expect)
+    if built != tuple(expect.values()):
+        raise RuntimeError(f"{source} was built with ({', '.join(expect)}) "
+                           f"{built}, the wrapper expects "
+                           f"{tuple(expect.values())}")
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# the hand-written kernels' seam
+# ---------------------------------------------------------------------------
+
+# every registered kernel -> its launches since `reset_launch_counts`
+launch_counts: dict[str, int] = {}
+
+
+def reset_launch_counts() -> None:
+    launch_counts.update(dict.fromkeys(launch_counts, 0))
+
+
+def count(kernel: str, counter: str | None = None) -> None:
+    """Count one launch of `kernel`, and one in the tracer counter
+    `counter` (None: none)."""
+    launch_counts[kernel] += 1
+    if counter:
+        profiling.count(counter)
+
+
+def takes_kernel(*tensors) -> bool:
+    """Whether inputs go to a hand-written kernel: float32 CUDA tensors
+    that take no gradient do (None stands for no tensor), any other input
+    goes to the kernel's plain twin."""
+    return all(t is None or (t.is_cuda and t.dtype == torch.float32
+                             and not t.requires_grad) for t in tensors)
+
+
+def check_operands(kernel: str, *tensors: torch.Tensor, ints=()) -> None:
+    """Raise unless every tensor is contiguous, on the first one's CUDA
+    device, and of float32 (int64 for those in `ints`): a kernel reads its
+    operands by pointer."""
+    device = tensors[0].device
+    if device.type != "cuda":
+        raise ValueError(f"{kernel}: tensors must be on CUDA, got {device}")
+    for t in tensors:
+        want = torch.int64 if any(t is i for i in ints) else torch.float32
+        if t.dtype is not want:
+            raise TypeError(f"{kernel}: expected {want}, got {t.dtype}")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{kernel}: every tensor must be contiguous and "
+                             f"on {device}, got one on {t.device} with "
+                             f"strides {t.stride()}")
+
+
+class _Counts(Mapping):
+    """`launch_counts` of some kernels, read live."""
+
+    def __init__(self, names: tuple):
+        self.names = names
+
+    def __getitem__(self, name: str) -> int:
+        if name not in self.names:
+            raise KeyError(name)
+        return launch_counts[name]
+
+    def __iter__(self):
+        return iter(self.names)
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+
+class Kernels:
+    """The hand-written kernels of `csrc/<source>`.  `kernels` maps each
+    kernel's name to its C entry and the argtypes it takes before the
+    stream; an entry returns 0, or an error code that the entry `error`
+    spells out.  `queries` are further entries (entry -> (restype,
+    *argtypes)), `expect` is `bind`'s.  Each kernel is registered in
+    `launch_counts`, and each launch adds one to the tracer counter
+    `counter` (None: none).  `launch_counts` here is the registry's view
+    of these kernels."""
+
+    def __init__(self, source: str, kernels: dict[str, tuple], error: str,
+                 queries: dict[str, tuple] | None = None,
+                 expect: dict[str, int] | None = None,
+                 counter: str | None = None):
+        self.source, self.kernels, self.error = source, kernels, error
+        self.expect, self.counter = expect, counter
+        self.argtypes = {entry: (INT, *args, PTR)
+                         for entry, *args in kernels.values()}
+        self.argtypes[error] = (ctypes.c_char_p, INT)
+        self.argtypes.update(queries or {})
+        launch_counts.update(dict.fromkeys(kernels, 0))
+        self.launch_counts = _Counts(tuple(kernels))
+
+    @functools.cached_property
+    def lib(self) -> ctypes.CDLL:
+        """The bound library, built first if needed."""
+        return bind(self.source, self.argtypes, self.expect)
+
+    def launch(self, kernel: str, device: torch.device, *args) -> None:
+        """Launch `kernel` with `args` on the current stream of `device`,
+        raise with the library's error string on a non-zero return, and
+        count the launch."""
+        lib = self.lib
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = getattr(lib, self.kernels[kernel][0])(*args, stream)
+        if err != 0:
+            msg = getattr(lib, self.error)(err).decode()
+            raise RuntimeError(f"{kernel} launch failed: {msg} ({err})")
+        count(kernel, self.counter)

@@ -30,17 +30,18 @@ pick the smallest index attaining the max.
 
 `farthest_point_sample_indices` dispatches by device: a CPU tensor takes
 `fps_plain`; a CUDA tensor launches a kernel (chosen as `fps_pallas_t`
-chooses, fps_pallas.py:340-344) or raises.  There is no fallback.  Each
-kernel wrapper counts its launches in `launch_counts`.
+chooses, fps_pallas.py:340-344) or raises.  There is no fallback.  The
+kernels launch through `cuda_build.Kernels`, which counts each launch in
+the one registry; `launch_counts` is its view of the five FPS kernels.
 """
 from __future__ import annotations
 
-import ctypes
 import os
 
 import torch
 
 from captra_tpu_torch.ops import cuda_build
+from captra_tpu_torch.ops.cuda_build import INT, PTR
 
 SOURCE = "fps.cu"
 WIDE_MIN_POINTS = 1024   # = SUBLANE * 128 in the TPU dispatch
@@ -59,13 +60,16 @@ _ENTRIES = {
     "fps_cuda_wide_cluster": "captra_fps_wide_cluster",
     "fps_cuda_blocked": "captra_fps_blocked",
 }
-launch_counts = {name: 0 for name in _ENTRIES}
-_LIB: ctypes.CDLL | None = None
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+_KERNELS = cuda_build.Kernels(
+    SOURCE, {name: (entry, PTR, PTR, INT, INT, INT)
+             for name, entry in _ENTRIES.items()},
+    error="captra_cuda_error_string",
+    queries={**{f"{entry}_max_points": (INT,) for entry in _ENTRIES.values()},
+             "captra_fps_batched_cluster_size": (INT, INT),
+             "captra_fps_wide_cluster_size": (INT, INT),
+             "captra_fps_cluster_threads": (INT,),
+             "captra_fps_blocked_row_points": (INT,)})
+launch_counts = _KERNELS.launch_counts
 
 
 def use_blocked() -> bool:
@@ -74,74 +78,42 @@ def use_blocked() -> bool:
     return os.environ.get("CAPTRA_FPS_BLOCKED") == "1"
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load(SOURCE)
-        for entry in _ENTRIES.values():
-            fn = getattr(lib, entry)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            bound = getattr(lib, f"{entry}_max_points")
-            bound.argtypes = []
-            bound.restype = ctypes.c_int
-        for fn in (lib.captra_fps_batched_cluster_size,
-                   lib.captra_fps_wide_cluster_size):
-            fn.argtypes = [ctypes.c_int]
-            fn.restype = ctypes.c_int
-        for fn in (lib.captra_fps_cluster_threads,
-                   lib.captra_fps_blocked_row_points):
-            fn.argtypes = []
-            fn.restype = ctypes.c_int
-        lib.captra_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.captra_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
 def max_points(kernel: str) -> int:
     """Largest N the named wrapper takes (builds the library): for
     "fps_cuda_batched" and "fps_cuda_wide", their cluster's bound."""
     if kernel in ("fps_cuda_batched", "fps_cuda_wide"):
         kernel += "_cluster"
-    return getattr(_lib(), f"{_ENTRIES[kernel]}_max_points")()
+    return getattr(_KERNELS.lib, f"{_ENTRIES[kernel]}_max_points")()
 
 
 def single_cta_points(kernel: str) -> int:
     """Largest N that "fps_cuda_batched" or "fps_cuda_wide" sweeps in one
     CTA per cloud; above it they launch their cluster."""
-    return getattr(_lib(), f"{_ENTRIES[kernel]}_max_points")()
+    return getattr(_KERNELS.lib, f"{_ENTRIES[kernel]}_max_points")()
 
 
 def cluster_size(kernel: str, n: int) -> int:
     """CTAs per cluster that `kernel`'s cluster launch gives an n-point
     cloud (0 if it is beyond the cluster's bound)."""
-    return getattr(_lib(), f"{_ENTRIES[kernel + '_cluster']}_size")(n)
+    return getattr(_KERNELS.lib, f"{_ENTRIES[kernel + '_cluster']}_size")(n)
 
 
 def cluster_threads() -> int:
     """Threads per CTA of the cluster launches."""
-    return _lib().captra_fps_cluster_threads()
+    return _KERNELS.lib.captra_fps_cluster_threads()
 
 
 def blocked_row_points() -> int:
     """Points in a row of the blocked kernel: the contiguous points whose
     box its skip rule tests against their max."""
-    return _lib().captra_fps_blocked_row_points()
+    return _KERNELS.lib.captra_fps_blocked_row_points()
 
 
 def _check(xyz: torch.Tensor, npoint: int, kernel: str) -> None:
-    if not xyz.is_cuda:
-        raise ValueError(f"{kernel}: xyz must be a CUDA tensor, got "
-                         f"{xyz.device}")
-    if xyz.dtype != torch.float32:
-        raise TypeError(f"{kernel}: xyz must be float32, got {xyz.dtype}")
+    cuda_build.check_operands(kernel, xyz)
     if xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"{kernel}: xyz must be [B, N, 3], got "
                          f"{tuple(xyz.shape)}")
-    if not xyz.is_contiguous():
-        raise ValueError(f"{kernel}: xyz must be contiguous")
     if xyz.shape[0] < 1 or xyz.shape[1] < 1 or npoint < 1:
         raise ValueError(f"{kernel}: empty input {tuple(xyz.shape)} -> "
                          f"{npoint}")
@@ -151,22 +123,16 @@ def _launch(kernel: str, xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Launch `kernel` (a key of `_ENTRIES`) on a checked input and count
     the launch."""
     B, N, _ = xyz.shape
-    lib = _lib()
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _ENTRIES[kernel])(xyz.data_ptr(), out.data_ptr(),
-                                             B, N, npoint, stream)
-    if err != 0:
-        msg = lib.captra_cuda_error_string(err).decode()
-        raise RuntimeError(f"{kernel} launch failed: {msg} ({err})")
-    launch_counts[kernel] += 1
+    _KERNELS.launch(kernel, xyz.device, xyz.data_ptr(), out.data_ptr(), B, N,
+                    npoint)
     return out
 
 
 def _launch_routed(kernel: str, xyz: torch.Tensor, npoint: int
                    ) -> torch.Tensor:
-    """One CTA per cloud up to the single-CTA bound, a cluster above."""
+    """One CTA per cloud up to the single-CTA bound, a cluster above (the
+    blocked kernel's single-CTA bound is its bound)."""
     _check(xyz, npoint, kernel)
     N = xyz.shape[1]
     bound = max_points(kernel)
@@ -198,12 +164,7 @@ def fps_cuda_blocked(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     20480 points), x and the running minima in registers, y and z in shared
     memory; a pick skips every row of `blocked_row_points()` points whose
     box lies no nearer than the row's max (exact: see csrc/fps.cu)."""
-    _check(xyz, npoint, "fps_cuda_blocked")
-    bound = max_points("fps_cuda_blocked")
-    if xyz.shape[1] > bound:
-        raise ValueError(f"fps_cuda_blocked takes at most {bound} points per "
-                         f"cloud, got {xyz.shape[1]}")
-    return _launch("fps_cuda_blocked", xyz, npoint)
+    return _launch_routed("fps_cuda_blocked", xyz, npoint)
 
 
 def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -248,7 +209,4 @@ def farthest_point_sample_indices(xyz: torch.Tensor, npoint: int
     if xyz.device.type != "cuda":
         raise ValueError(f"no FPS for device {xyz.device}")
     B, N, _ = xyz.shape
-    wrapper = {"fps_cuda_blocked": fps_cuda_blocked,
-               "fps_cuda_wide": fps_cuda_wide,
-               "fps_cuda_batched": fps_cuda_batched}[route(B, N)]
-    return wrapper(xyz.contiguous(), npoint)
+    return _launch_routed(route(B, N), xyz.contiguous(), npoint)

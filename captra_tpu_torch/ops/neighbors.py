@@ -19,13 +19,15 @@ vectors), then selects:
                 a radius or `pointops.three_nn_select`, the chain's own
                 calls, so they give its numbers bit for bit.
 
-`ball_query_stage` and `three_nn_stage` route by what they are given:
-float32 CUDA clouds that take no gradient go to the kernel (the tracer's
-`nbr_fused` counter counts these stages), any other input to the twin, on
-any device.  A ball query detaches its clouds first: indices carry no
-gradient, so its route is the kernel's in training too.  There is no
-fallback: the kernel's wrapper raises on what it cannot take, and counts
-its launches in `launch_counts`.  `pointops.ball_query` a radius and
+`ball_query_stage` and `three_nn_stage` route by the seam's one rule
+(`cuda_build.takes_kernel`): float32 CUDA clouds that take no gradient go
+to the kernel, any other input to the twin, on any device.  A ball query
+detaches its clouds first: indices carry no gradient, so its route is the
+kernel's in training too.  There is no fallback: the kernel's wrapper
+raises on what it cannot take.  The kernels launch through
+`cuda_build.Kernels`, which counts each launch in the one registry
+(`launch_counts` is its view here) and in the tracer's `nbr_fused`
+counter, one a stage.  `pointops.ball_query` a radius and
 `pointops.three_nn`, the chain the kernels replaced, stay as the reference
 the tests hold both to.
 """
@@ -37,14 +39,10 @@ from typing import Sequence
 import torch
 
 from captra_tpu_torch.ops import cuda_build, pointops
-from captra_tpu_torch.utils import profiling
 
 SOURCE = "neighbors.cu"
 MAX_RADII = 4            # radii a stage (csrc/neighbors.cu: kMaxRadii)
 ROWS_PER_CTA = 8         # query rows a CTA, one a warp
-
-launch_counts = {"ball_query_cuda": 0, "three_nn_cuda": 0}
-_LIB: ctypes.CDLL | None = None
 
 
 class _BallArgs(ctypes.Structure):
@@ -63,36 +61,15 @@ class _NnArgs(ctypes.Structure):
                 *[(n, ctypes.c_int) for n in ("B", "S", "N", "vec")]]
 
 
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load(SOURCE)
-        for fn in (lib.captra_nbr_max_radii, lib.captra_nbr_rows_per_cta,
-                   lib.captra_nbr_ball_args_bytes,
-                   lib.captra_nbr_nn_args_bytes):
-            fn.argtypes = []
-            fn.restype = ctypes.c_int
-        for fn in (lib.captra_ball_query, lib.captra_three_nn):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.captra_nbr_error_string.argtypes = [ctypes.c_int]
-        lib.captra_nbr_error_string.restype = ctypes.c_char_p
-        built = (lib.captra_nbr_max_radii(), lib.captra_nbr_rows_per_cta(),
-                 lib.captra_nbr_ball_args_bytes(),
-                 lib.captra_nbr_nn_args_bytes())
-        want = (MAX_RADII, ROWS_PER_CTA, ctypes.sizeof(_BallArgs),
-                ctypes.sizeof(_NnArgs))
-        if built != want:
-            raise RuntimeError(f"{SOURCE} was built with (radii, rows a CTA, "
-                               f"ball args bytes, 3-NN args bytes) {built}, "
-                               f"the wrapper expects {want}")
-        _LIB = lib
-    return _LIB
+_KERNELS = cuda_build.Kernels(
+    SOURCE, {"ball_query_cuda": ("captra_ball_query", cuda_build.PTR),
+             "three_nn_cuda": ("captra_three_nn", cuda_build.PTR)},
+    error="captra_nbr_error_string", counter="nbr_fused",
+    expect={"captra_nbr_max_radii": MAX_RADII,
+            "captra_nbr_rows_per_cta": ROWS_PER_CTA,
+            "captra_nbr_ball_args_bytes": ctypes.sizeof(_BallArgs),
+            "captra_nbr_nn_args_bytes": ctypes.sizeof(_NnArgs)})
+launch_counts = _KERNELS.launch_counts
 
 
 # ---------------------------------------------------------------------------
@@ -123,16 +100,7 @@ def three_nn_plain(prod: torch.Tensor, row_sq: torch.Tensor,
 
 def _check(name: str, prod, row_sq, col_sq) -> tuple[int, int, int, int]:
     """Raise on terms the kernel does not take; return (B, S, N, vec)."""
-    if not prod.is_cuda:
-        raise ValueError(f"{name}: tensors must be on CUDA, got "
-                         f"{prod.device}")
-    for t in (prod, row_sq, col_sq):
-        if t.dtype is not torch.float32:
-            raise TypeError(f"{name}: expected torch.float32, got {t.dtype}")
-        if t.device != prod.device or not t.is_contiguous():
-            raise ValueError(f"{name}: every tensor must be contiguous and "
-                             f"on {prod.device}, got one on {t.device} with "
-                             f"strides {t.stride()}")
+    cuda_build.check_operands(name, prod, row_sq, col_sq)
     if prod.dim() != 3:
         raise ValueError(f"{name}: prod must be [B, S, N], got "
                          f"{tuple(prod.shape)}")
@@ -147,16 +115,6 @@ def _check(name: str, prod, row_sq, col_sq) -> tuple[int, int, int, int]:
     vec = int(N % 4 == 0 and prod.data_ptr() % 16 == 0
               and col_sq.data_ptr() % 16 == 0)
     return B, S, N, vec
-
-
-def _launch(entry, args, device: torch.device, name: str) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = entry(ctypes.byref(args), stream)
-    if err != 0:
-        msg = _lib().captra_nbr_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
-    launch_counts[name] += 1
 
 
 def ball_query_cuda(prod: torch.Tensor, row_sq: torch.Tensor,
@@ -180,7 +138,7 @@ def ball_query_cuda(prod: torch.Tensor, row_sq: torch.Tensor,
         args.r2[j] = pointops._f32_square(r)
         args.k[j] = k
     args.radii, args.B, args.S, args.N, args.vec = len(radii), B, S, N, vec
-    _launch(_lib().captra_ball_query, args, prod.device, name)
+    _KERNELS.launch(name, prod.device, ctypes.byref(args))
     return outs
 
 
@@ -193,22 +151,13 @@ def three_nn_cuda(prod: torch.Tensor, row_sq: torch.Tensor,
     idx = torch.empty((B, S, 3), dtype=torch.int64, device=prod.device)
     args = _NnArgs(prod.data_ptr(), row_sq.data_ptr(), col_sq.data_ptr(),
                    dist.data_ptr(), idx.data_ptr(), B, S, N, vec)
-    _launch(_lib().captra_three_nn, args, prod.device, name)
+    _KERNELS.launch(name, prod.device, ctypes.byref(args))
     return dist, idx
 
 
 # ---------------------------------------------------------------------------
 # the stages
 # ---------------------------------------------------------------------------
-
-def route(*clouds: torch.Tensor) -> str:
-    """"kernel" for float32 CUDA clouds that take no gradient, "plain" (the
-    twin) for any other."""
-    if all(c.is_cuda and c.dtype == torch.float32 and not c.requires_grad
-           for c in clouds):
-        return "kernel"
-    return "plain"
-
 
 def ball_query_stage(radii: Sequence[float], nsamples: Sequence[int],
                      xyz: torch.Tensor, new_xyz: torch.Tensor
@@ -218,8 +167,7 @@ def ball_query_stage(radii: Sequence[float], nsamples: Sequence[int],
     radius."""
     xyz, new_xyz = xyz.detach(), new_xyz.detach()
     terms = pointops.distance_terms(new_xyz, xyz)
-    if route(xyz, new_xyz) == "kernel":
-        profiling.count("nbr_fused")
+    if cuda_build.takes_kernel(xyz, new_xyz):
         return ball_query_cuda(*terms, radii, nsamples)
     return ball_query_plain(*terms, radii, nsamples)
 
@@ -228,7 +176,6 @@ def three_nn_stage(xyz1: torch.Tensor, xyz2: torch.Tensor):
     """`pointops.three_nn(xyz1, xyz2)`: xyz1 [B, N, 3], xyz2 [B, M, 3] ->
     (squared dists [B, N, 3], int64 idx [B, N, 3])."""
     terms = pointops.distance_terms(xyz1, xyz2)
-    if route(xyz1, xyz2) == "kernel":
-        profiling.count("nbr_fused")
+    if cuda_build.takes_kernel(xyz1, xyz2):
         return three_nn_cuda(*terms)
     return three_nn_plain(*terms)

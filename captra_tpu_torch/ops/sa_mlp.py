@@ -17,11 +17,14 @@ indices and does the rest:
                 `torch.amax`, the calls the module chain makes, so on the
                 CPU it gives today's chain's numbers bit for bit.
 
-`sa_scale` dispatches by device: a CPU tensor takes `sa_mlp_plain`, a CUDA
-tensor launches the kernel or raises; there is no fallback.  It adds to the
-tracer's `sa_fused` counter (`utils/profiling.count`) and the kernel
-wrapper counts its launches in `launch_counts`.  `fits` says whether the
-kernel takes a scale's shape; the kernel's wrapper raises on any other.
+`sa_scale` routes by the seam's one rule (`cuda_build.takes_kernel`):
+float32 CUDA clouds that take no gradient launch the kernel, any other
+input takes `sa_mlp_plain`; there is no fallback.  The kernel launches
+through `cuda_build.Kernels`, which counts each launch in the one registry
+(`launch_counts` is its view here) and in the tracer's `sa_fused` counter
+(`utils/profiling.count`): the counter counts kernels, not the CPU twin.
+`fits` says whether the kernel takes a scale's shape; the kernel's wrapper
+raises on any other.
 """
 from __future__ import annotations
 
@@ -32,7 +35,6 @@ import torch
 from torch.nn import functional as F
 
 from captra_tpu_torch.ops import cuda_build, pointops
-from captra_tpu_torch.utils import profiling
 
 SOURCE = "sa_mlp.cu"
 # the kernel's tiling (csrc/sa_mlp.cu): neighbour rows a CTA, floats a
@@ -48,9 +50,6 @@ HEADER_FLOATS = ROWS + 4 * ROWS
 STAGE_FLOATS = 2 * DEPTH * STRIDE
 # the dynamic shared memory a CTA may take on an H100
 SMEM_LIMIT = 232448
-
-launch_counts = {"sa_mlp_cuda": 0}
-_LIB: ctypes.CDLL | None = None
 
 
 class Layer(NamedTuple):
@@ -84,37 +83,15 @@ class _CArgs(ctypes.Structure):
                 ("layer", _CLayer * MAX_LAYERS)]
 
 
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load(SOURCE)
-        for fn in (lib.captra_sa_mlp_rows, lib.captra_sa_mlp_max_layers,
-                   lib.captra_sa_mlp_header_floats,
-                   lib.captra_sa_mlp_stage_floats,
-                   lib.captra_sa_mlp_args_bytes):
-            fn.argtypes = []
-            fn.restype = ctypes.c_int
-        lib.captra_sa_mlp.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.captra_sa_mlp.restype = ctypes.c_int
-        lib.captra_sa_mlp_error_string.argtypes = [ctypes.c_int]
-        lib.captra_sa_mlp_error_string.restype = ctypes.c_char_p
-        built = (lib.captra_sa_mlp_rows(), lib.captra_sa_mlp_max_layers(),
-                 lib.captra_sa_mlp_header_floats(),
-                 lib.captra_sa_mlp_stage_floats(),
-                 lib.captra_sa_mlp_args_bytes())
-        want = (ROWS, MAX_LAYERS, HEADER_FLOATS, STAGE_FLOATS,
-                ctypes.sizeof(_CArgs))
-        if built != want:
-            raise RuntimeError(f"{SOURCE} was built with (rows, layers, "
-                               f"header, stages, args bytes) {built}, the "
-                               f"wrapper expects {want}")
-        _LIB = lib
-    return _LIB
+_KERNELS = cuda_build.Kernels(
+    SOURCE, {"sa_mlp_cuda": ("captra_sa_mlp", cuda_build.PTR)},
+    error="captra_sa_mlp_error_string", counter="sa_fused",
+    expect={"captra_sa_mlp_rows": ROWS,
+            "captra_sa_mlp_max_layers": MAX_LAYERS,
+            "captra_sa_mlp_header_floats": HEADER_FLOATS,
+            "captra_sa_mlp_stage_floats": STAGE_FLOATS,
+            "captra_sa_mlp_args_bytes": ctypes.sizeof(_CArgs)})
+launch_counts = _KERNELS.launch_counts
 
 
 def _padded(c: int) -> int:
@@ -171,18 +148,10 @@ def sa_mlp_plain(xyz: torch.Tensor, new_xyz: torch.Tensor,
 def _check(xyz, new_xyz, feats, idx, layers, out, offset) -> list[int]:
     """Raise on what the kernel does not take; return the layers' widths."""
     name = "sa_mlp_cuda"
-    device = xyz.get_device()
     tensors = [xyz, new_xyz, idx, out, *(t for L in layers for t in L[:6])]
     if feats is not None:
         tensors.append(feats)
-    for t in tensors:
-        want = torch.int64 if t is idx else torch.float32
-        if t.dtype is not want:
-            raise TypeError(f"{name}: expected {want}, got {t.dtype}")
-        if t.get_device() != device or not t.is_contiguous():
-            raise ValueError(f"{name}: every tensor must be contiguous and "
-                             f"on {xyz.device}, got one on {t.device} with "
-                             f"strides {t.stride()}")
+    cuda_build.check_operands(name, *tensors, ints=(idx,))
     B, N, _ = xyz.shape
     _, S, K = idx.shape
     cin = 3 if feats is None else feats.shape[-1] + 3
@@ -223,14 +192,10 @@ def sa_mlp_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor,
     offset:offset + C_out] (out [B, S, C], float32) and returns out.  The
     indices are `ball_query`'s, each in [0, N) (the kernel reads them as
     they are)."""
-    if not xyz.is_cuda:
-        raise ValueError(f"sa_mlp_cuda: tensors must be on CUDA, got "
-                         f"{xyz.device}")
     widths = _check(xyz, new_xyz, feats, idx, layers, out, offset)
     B, N, _ = xyz.shape
     _, S, K = idx.shape
     cpt, x, y, smem = layout(K, widths)
-    lib = _lib()
     args = _CArgs(xyz.data_ptr(), new_xyz.data_ptr(),
                   None if feats is None else feats.data_ptr(),
                   idx.data_ptr(), out.data_ptr(), B, N, S, K,
@@ -241,13 +206,7 @@ def sa_mlp_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor,
             L.weight.data_ptr(), L.bias.data_ptr(), L.gamma.data_ptr(),
             L.beta.data_ptr(), L.mean.data_ptr(), L.var.data_ptr(),
             float(L.eps), L.weight.shape[1], L.weight.shape[0], 0)
-    with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.captra_sa_mlp(ctypes.byref(args), stream)
-    if err != 0:
-        msg = lib.captra_sa_mlp_error_string(err).decode()
-        raise RuntimeError(f"sa_mlp_cuda launch failed: {msg} ({err})")
-    launch_counts["sa_mlp_cuda"] += 1
+    _KERNELS.launch("sa_mlp_cuda", xyz.device, ctypes.byref(args))
     return out
 
 
@@ -255,14 +214,14 @@ def sa_scale(xyz: torch.Tensor, new_xyz: torch.Tensor,
              feats: torch.Tensor | None, idx: torch.Tensor,
              layers: Sequence[Layer], out: torch.Tensor,
              offset: int = 0) -> torch.Tensor:
-    """Device dispatch of one fused scale into out[..., offset:offset +
-    C_out]: CPU -> `sa_mlp_plain`; CUDA -> `sa_mlp_cuda`."""
-    profiling.count("sa_fused")
-    if xyz.device.type == "cpu":
-        got = sa_mlp_plain(xyz, new_xyz, feats, idx, layers)
-        out[..., offset:offset + got.shape[-1]] = got
-        return out
-    if xyz.device.type != "cuda":
+    """One fused scale into out[..., offset:offset + C_out]: clouds that
+    `cuda_build.takes_kernel` sends to the kernel -> `sa_mlp_cuda`; any
+    other on the CPU or CUDA -> `sa_mlp_plain`."""
+    if cuda_build.takes_kernel(xyz, new_xyz, feats):
+        return sa_mlp_cuda(xyz, new_xyz, feats, idx, layers, out, offset)
+    if xyz.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused set-abstraction scale for device "
                          f"{xyz.device}")
-    return sa_mlp_cuda(xyz, new_xyz, feats, idx, layers, out, offset)
+    got = sa_mlp_plain(xyz, new_xyz, feats, idx, layers)
+    out[..., offset:offset + got.shape[-1]] = got
+    return out

@@ -67,7 +67,8 @@ from captra_tpu_torch.models.coordnet import canonicalize
 from captra_tpu_torch.models.rotnet import (
     canonicalize_per_part, compose_track_pose, decode_rotation,
 )
-from captra_tpu_torch.ops import fps, neighbors, pointops, sa_mlp
+from captra_tpu_torch import ops
+from captra_tpu_torch.ops.cuda_build import launch_counts
 from captra_tpu_torch.pose import rotations as rot
 from captra_tpu_torch.pose.part_dof import (
     Pose, add_noise_to_pose, eval_part_full, tree_root,
@@ -81,11 +82,6 @@ from captra_tpu_torch.utils.profiling import SyncCount, annotate
 # captured into a CUDA graph (the call's answer is the capture's eager
 # warm-up), replayed from one
 graph_counts = {"eager": 0, "captured": 0, "replayed": 0}
-
-# the kernel wrappers' launch counters: a capture records how much each grew
-# and every replay adds that again, so a replayed step counts its launches
-_LAUNCH_COUNTERS = (fps.launch_counts, sa_mlp.launch_counts,
-                    neighbors.launch_counts)
 
 
 @dataclass
@@ -131,8 +127,7 @@ def eager_reason(device: torch.device, track: TrackCfg,
         return "not a CUDA step"
     if _profiler_enabled():
         return "a profiler records"
-    if pointops.farthest_point_sample_indices \
-            is not fps.farthest_point_sample_indices:
+    if ops.fps_wrapped():
         return "the FPS entry is wrapped"
     if track.nocs_otf and frame.get("shift") is None:
         return "the crop draws its shifts"
@@ -202,14 +197,15 @@ def _layout(x: torch.Tensor) -> tuple:
 def _signature(carry, frame: dict) -> tuple:
     """What a captured step is valid for: the layout of every carry and
     frame tensor, the frame's keys, and the switches that choose kernels
-    (TF32, autocast, deterministic algorithms, the blocked FPS opt-in)."""
+    (TF32, autocast, deterministic algorithms, `ops.kernel_switches`)."""
     return (tuple(_layout(x) for x in _leaves(carry)),
             tuple(sorted((k, _layout(v)) for k, v in frame.items())),
             torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32,
             torch.is_autocast_enabled("cuda"),
             torch.get_autocast_dtype("cuda"),
-            torch.are_deterministic_algorithms_enabled(), fps.use_blocked())
+            torch.are_deterministic_algorithms_enabled(),
+            ops.kernel_switches())
 
 
 class _Graph:
@@ -233,9 +229,8 @@ class _Graph:
     def replay(self, carry, frame: dict):
         self.load(carry, frame)
         self.graph.replay()
-        for counts, grown in zip(_LAUNCH_COUNTERS, self.growth):
-            for k, n in grown.items():
-                counts[k] += n
+        for k, n in self.growth.items():
+            launch_counts[k] += n
         graph_counts["replayed"] += 1
         return _fresh(self.out)
 
@@ -293,14 +288,13 @@ class _StepGraphs:
             self.graphs[sig] = _EAGER
             graph_counts["eager"] += 1
             return result
-        before = [dict(counts) for counts in _LAUNCH_COUNTERS]
+        before = dict(launch_counts)
         with torch.cuda.graph(graph.graph, stream=self.stream):
             graph.out = self.body(graph.carry, graph.frame)
-        # the capture launched nothing: its counts move to every replay
-        graph.growth = []
-        for counts, was in zip(_LAUNCH_COUNTERS, before):
-            graph.growth.append({k: counts[k] - was[k] for k in counts})
-            counts.update(was)
+        # the capture launched nothing: the launches it counted in the
+        # kernels' one registry move to every replay
+        graph.growth = {k: n - before[k] for k, n in launch_counts.items()}
+        launch_counts.update(before)
         self.graphs[sig] = graph
         graph_counts["captured"] += 1
         return result
@@ -326,13 +320,14 @@ def make_track_step(cfg: Config, coord_fn: Callable, rot_fn: Callable,
     On CUDA the step replays its body as one CUDA graph.  A call's
     signature is the layout (shape, strides, dtype, device) of every carry
     and frame tensor, the frame's keys, and the switches that choose
-    kernels: TF32, autocast, deterministic algorithms, the blocked FPS
-    opt-in.  The first call with a signature runs eagerly (kernel builds
+    kernels: TF32, autocast, deterministic algorithms, the hand-written
+    kernels' switches (`ops.kernel_switches`).  The first call with a signature runs eagerly (kernel builds
     and lazy set-up happen there); the second runs the body on a side
     stream, returns that answer and captures the body; every later call
     copies the carry and frame into the graph's input buffers, replays it
-    and returns fresh copies of its outputs, which the caller may keep.
-    Each signature's graph is kept.  A call runs eagerly where
+    and returns fresh copies of its outputs, which the caller may keep; it
+    adds to the kernels' one launch registry (`ops.cuda_build`) what its
+    capture counted there.  Each signature's graph is kept.  A call runs eagerly where
     `eager_reason` gives a reason: off CUDA, while a profiler records,
     while the FPS entry is wrapped, where the frame needs a draw from
     `generator` (an OTF frame without "shift", or `fit_ransac > 0` without

@@ -444,33 +444,24 @@ NBR_STAGES = {"ball_query_cuda": 2, "three_nn_cuda": 2}
 
 
 def reset_launches() -> None:
-    """Zero the hand-written kernels' launch counters: FPS's, the fused
-    set-abstraction scale's and the neighbour selection's."""
-    from captra_tpu_torch.ops import fps, neighbors, sa_mlp
-    fps.reset_launch_counts()
-    sa_mlp.reset_launch_counts()
-    neighbors.reset_launch_counts()
+    """Zero the hand-written kernels' one launch registry
+    (`ops/cuda_build.py`): FPS's, the fused set-abstraction scale's and the
+    neighbour selection's."""
+    from captra_tpu_torch.ops import cuda_build
+    cuda_build.reset_launch_counts()
 
 
-def read_sa(path: str) -> int:
-    """The fused scale's launches since `reset_launches`, added to
-    SA_LAUNCHES[path]; the neighbour kernels' are added to
-    NBR_LAUNCHES[path] (`read_nbr`)."""
-    from captra_tpu_torch.ops import sa_mlp
-    n = sa_mlp.launch_counts["sa_mlp_cuda"]
-    SA_LAUNCHES[path] = SA_LAUNCHES.get(path, 0) + n
-    read_nbr(path)
-    return n
-
-
-def read_nbr(path: str) -> None:
-    """Add the neighbour kernels' launches since `reset_launches` to
-    NBR_LAUNCHES[path]."""
-    from captra_tpu_torch.ops import neighbors
-    total = NBR_LAUNCHES.setdefault(path, dict.fromkeys(
-        neighbors.launch_counts, 0))
-    for k, v in neighbors.launch_counts.items():
-        total[k] += v
+def read_launches(path: str) -> dict:
+    """Every kernel's launches since `reset_launches`, read from the one
+    registry: the fused scale's are added to SA_LAUNCHES[path], the
+    neighbour kernels' to NBR_LAUNCHES[path]."""
+    from captra_tpu_torch.ops import cuda_build
+    got = dict(cuda_build.launch_counts)
+    SA_LAUNCHES[path] = SA_LAUNCHES.get(path, 0) + got["sa_mlp_cuda"]
+    total = NBR_LAUNCHES.setdefault(path, dict.fromkeys(NBR_STAGES, 0))
+    for k in total:
+        total[k] += got[k]
+    return got
 
 
 def check_nbr(name: str, got: dict, passes: int, dev: torch.device) -> None:
@@ -817,7 +808,7 @@ def phase_kernels() -> dict:
             _check_case(fps, results, getattr(fps, wrapper), sub, 4096,
                         CROP_SET)
     log(f"kernel launches in this phase (not the main path's): "
-        f"{fps.launch_counts}")
+        f"{dict(fps.launch_counts)}")
     return results
 
 
@@ -1149,14 +1140,14 @@ def timed_run(name: str, track, B: int, frames: int, dev: torch.device,
     POSE_TOL (labels equal) of the same trajectory with the plain FPS on
     the card, and with `profile` a profiler window of 3 steps.  Returns the
     run's record and the last timed trajectory's aux."""
-    from captra_tpu_torch.ops import fps, neighbors
+    from captra_tpu_torch.ops import fps
     track(3)                                          # warm-up
     sync(dev)
     reset_launches()
     steps_ms, aux = time_track(lambda: track(frames), frames - 1, dev)
     launches = dict(fps.launch_counts)
-    sa = read_sa(name.replace(" ", "_"))
-    nbr = dict(neighbors.launch_counts)
+    got = read_launches(name.replace(" ", "_"))
+    sa, nbr = got["sa_mlp_cuda"], {k: got[k] for k in NBR_STAGES}
     for f in ("rotation", "translation", "scale"):
         if not bool(torch.isfinite(getattr(aux.pose, f)).all()):
             raise AssertionError(f"{name}: non-finite {f}")
@@ -1620,7 +1611,7 @@ def phase_init_search(config=None, device: str = "cuda",
     from captra_tpu_torch.data.synthetic import (
         batch_trajectories, make_trajectory,
     )
-    from captra_tpu_torch.ops import fps, neighbors
+    from captra_tpu_torch.ops import fps
     from captra_tpu_torch.tracking.tracker import (
         init_pose_from_cloud, make_track_step, search_init_orientation,
         track_trajectory,
@@ -1658,8 +1649,8 @@ def phase_init_search(config=None, device: str = "cuda",
         sync(dev)
         search_ms.append((time.perf_counter() - t0) * 1e3)
     launches = dict(fps.launch_counts)
-    sa = read_sa("init_search")
-    nbr = dict(neighbors.launch_counts)
+    got = read_launches("init_search")
+    sa, nbr = got["sa_mlp_cuda"], {k: got[k] for k in NBR_STAGES}
     with plain_fps_on_card():
         plain_found = search()
     diff = _max_pose_diff(found, plain_found)
@@ -1846,7 +1837,7 @@ def phase_cli(kernels: dict) -> dict:
             reset_launches()
             text, _, track_s = _printed(track.main, argv, device=dev)
             launches = dict(fps.launch_counts)
-            read_sa(f"cli_{name}")
+            read_launches(f"cli_{name}")
             for line in text.strip().splitlines():
                 log(f"  | {line}")
             batches = _BATCH_LINE.findall(text)
@@ -1981,7 +1972,7 @@ def check_reference_checkpoint(tmp: str, dev: torch.device) -> dict:
     _, aux = track(cv, rv)
     sync(dev)
     launches = dict(fps.launch_counts)
-    read_sa("cli_reference_pt")
+    read_launches("cli_reference_pt")
     want = {k: predicted_launches(cfg, 1).get(k, 0) * (T - 1)
             for k in launches}
     if launches != want:
@@ -2314,7 +2305,7 @@ def track_from_disk(name: str, root: str, flags: list, exp: str,
         reset_launches()
         text, _, main_s = _printed(track.main, argv, device=dev)
         launches = dict(fps.launch_counts)
-        read_sa(f"{path}_{name}")
+        read_launches(f"{path}_{name}")
     finally:
         track.track_sequences = sequences
         track.dataset_sequences = dataset_sequences
@@ -2802,7 +2793,7 @@ def train_run(name: str, config: str, overrides: dict, dev, kernels: dict
         steps_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss["total_loss"])
     launches = dict(fps.launch_counts)
-    read_sa(f"train_{name}")
+    read_launches(f"train_{name}")
     peak = torch.cuda.max_memory_allocated(dev)
     want = {k: v * TRAIN_STEPS for k, v in train_launches(cfg, B).items()}
     if {k: v for k, v in launches.items() if v} != want:
@@ -2920,7 +2911,7 @@ def phase_train(kernels: dict) -> dict:
                                                     device=dev)
                 sync(dev)
                 launches = {k: v for k, v in fps.launch_counts.items() if v}
-                read_sa(f"train_cli_{label}")
+                read_launches(f"train_cli_{label}")
                 want = {k: v * TRAIN_CLI_STEPS for k, v in
                         train_launches(cfg, TRAIN_CLI_BATCH).items()}
                 if launches != want or state.step != epochs * \
@@ -2957,7 +2948,7 @@ def phase_train(kernels: dict) -> dict:
             text, avgs, seconds = _printed(track_cli.main, track_argv,
                                            device=dev)
             launches = {k: v for k, v in fps.launch_counts.items() if v}
-            read_sa("train_cli_track")
+            read_launches("train_cli_track")
             tcfg = track_cli.parse(track_argv)[1]
             want = {}
             for _, frames, b, _, _ in _BATCH_LINE.findall(text):
@@ -2991,7 +2982,7 @@ def phase_train(kernels: dict) -> dict:
                 "--basepath", root, "--batch_size",
                 str(TRAIN_CLI_BATCH), "--total_epoch", "1"], device=dev)
             launches = {k: v for k, v in fps.launch_counts.items() if v}
-            read_sa("train_cli_finetune")
+            read_launches("train_cli_finetune")
             log_text = open(os.path.join(exp, "log", "log.txt")).read()
             want_steps = 2 * FINETUNE_FRAMES["real_train"] // TRAIN_CLI_BATCH
             # the train steps and the real_test evaluation's steps
@@ -3123,7 +3114,7 @@ def phase_rollout(kernels: dict, profile: str | None = None) -> dict:
                                       draws=draws)
             sync(dev)
             launches = {k: v for k, v in fps.launch_counts.items() if v}
-            read_sa("rollout_round1")
+            read_launches("rollout_round1")
             with plain_fps_on_card():
                 _, _, plain = round_fn(twins["canon_coord"], twins["rot"],
                                        draws=draws)
@@ -3212,7 +3203,7 @@ def phase_rollout(kernels: dict, profile: str | None = None) -> dict:
         reset_launches()
         text, report, main_s = _printed(rcli.main, argv, device=dev)
         main_launches = {k: v for k, v in fps.launch_counts.items() if v}
-        read_sa("rollout_main")
+        read_launches("rollout_main")
         for line in text.strip().splitlines():
             log(f"  | {line}")
         want = {k: ROLLOUT_ROUNDS * per_round.get(k, 0)
@@ -3431,7 +3422,7 @@ def multi_rank(rank: int, world: int, device: str, batch: dict,
         sync(dev)
         steps_ms.append((time.perf_counter() - t0) * 1e3)
     out["launches"] = {k: v for k, v in fps.launch_counts.items() if v}
-    out["sa_launches"] = read_sa("multi_w2")
+    out["sa_launches"] = read_launches("multi_w2")["sa_mlp_cuda"]
     out["steps_ms"] = steps_ms
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     spent, out["reduce_ms"], out["reduce_steps_ms"] = [0.0], [], []
@@ -3456,7 +3447,8 @@ def multi_rank(rank: int, world: int, device: str, batch: dict,
             track.run_tracking(args, tcfg, cv, rv, dev, dp)
         out["tracks"][name] = {
             "launches": {k: v for k, v in fps.launch_counts.items() if v},
-            "sa_launches": read_sa(f"multi_track_{name}"),
+            "sa_launches": read_launches(f"multi_track_{name}")[
+                "sa_mlp_cuda"],
             "seconds": time.perf_counter() - t0, "text": text.getvalue(),
             "fps_inputs": _cpu_calls(calls)}
     return out
@@ -3618,7 +3610,7 @@ def phase_multi(data: dict, tmp: str, kernels: dict) -> dict:
         finally:
             dist.destroy_process_group()
     out["w1_launches"] = {k: v for k, v in fps.launch_counts.items() if v}
-    read_sa("multi_w1")
+    read_launches("multi_w1")
     w1_diff = max(_relative_loss_diff(a, b)
                   for a, b in zip(w1_losses, ref_losses))
     w1_grad = float(np.abs(w1_grads - ref_grads).max())
@@ -3864,7 +3856,7 @@ def counted_run(out: dict, calls: dict, phase: str, name: str, fn, *args,
         text, ret, seconds = _printed(fn, *args, **kwargs)
     sync(dev)
     out["launches"][name] = {k: v for k, v in fps.launch_counts.items() if v}
-    read_sa(f"{phase}_{name}")
+    read_launches(f"{phase}_{name}")
     out["seconds"][name] = seconds
     for line in text.strip().splitlines():
         log(f"  | {line}")

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from captra_tpu_torch import ops
-from captra_tpu_torch.ops import fps
+from captra_tpu_torch.ops import cuda_build, fps
 
 pytestmark = pytest.mark.cuda
 
@@ -158,7 +158,7 @@ def test_degenerate_clouds_match_plain(card, name, B, N, npoint, kernel,
     # every minimum reaches 0 after the distinct points: the picks from
     # there on are all index 0, which the kernels write without sweeping
     xyz = _tie_cloud(kind, B, N, 6, card)
-    fps.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got = getattr(fps, name)(xyz, npoint)
     torch.cuda.synchronize()
     assert fps.launch_counts[kernel] == 1
@@ -236,7 +236,7 @@ def test_dispatch_counts_the_kernel_it_launches(card, B, N, blocked, kernel,
         monkeypatch.setenv("CAPTRA_FPS_BLOCKED", "1")
     else:
         monkeypatch.delenv("CAPTRA_FPS_BLOCKED", raising=False)
-    fps.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     idx = ops.farthest_point_sample(_cloud(1, B, N, card), 64)
     torch.cuda.synchronize()
     assert idx.shape == (B, 64)
@@ -392,7 +392,7 @@ def test_otf_frame_from_depth_on_the_card_equals_plain_fps(card):
         0)).to(card)
     args = (draw, depth, mask, preprocess.NOCS_REAL_INTRINSICS,
             pose.translation[:, 0], 0.6 * pose.scale, pose, 4096)
-    fps.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got = preprocess.otf_frame_from_depth(*args)
     assert fps.launch_counts["fps_cuda_wide_cluster"] == 1
     routed = pointops.farthest_point_sample_indices
@@ -425,7 +425,7 @@ def test_full_width_train_step_matches_plain_fps(card, config, monkeypatch):
     batch = make_frame_batch(0, cfg.obj, batch=cfg.batch_size,
                              num_points=cfg.num_points)
     draws = trainer.draw(batch, torch.Generator(card).manual_seed(1))
-    fps.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         _, losses, _ = trainer.train_step(state, batch, draws=draws)
@@ -520,7 +520,7 @@ def test_rollout_round_on_the_card_matches_plain_fps(card, monkeypatch):
     round_fn = make_finetune_round(cfg, *trainers, pool, traj_batch=2,
                                    traj_frames=3, minibatch=2, device=card)
     draws = round_fn.draw(torch.Generator(card).manual_seed(1))
-    fps.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         _, _, logs = round_fn(*states, draws=draws)
@@ -571,7 +571,7 @@ def test_reference_checkpoint_nets_on_the_card(card, tmp_path):
     data = batch_trajectories([make_trajectory(0, cfg.obj, num_frames=4,
                                                num_points=cfg.num_points)])
     poses = {}
-    fps.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     for dev in (card, torch.device("cpu")):
         step = make_track_step(cfg, coordnet_from_flax(cfg, cv, dev).eval(),
                                rotnet_from_flax(cfg, rv, dev).eval(),
@@ -634,7 +634,7 @@ def test_preprocessed_tree_tracks_on_the_card_as_the_plain_fps(card,
     write_raw_nocs(root, "real_test", ["scene_1"], 3)
     run_pipeline(root, data_types=("real_test",), categories=[1],
                  log=lambda *_: None)
-    fps.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got = _track_preprocessed_tree(root, card, str(tmp_path / "kernels"))
     assert sum(fps.launch_counts.values()) > 0
     routed = pointops.farthest_point_sample_indices
@@ -814,7 +814,7 @@ def test_sa_module_launches_one_kernel_a_scale(card):
     xyz = _sa_inputs(2, 4096, 3, 0, card)[0].transpose(1, 2).contiguous(
         ).transpose(1, 2)
     feats = xyz
-    sa_mlp.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     with torch.no_grad():
         assert m.fused(xyz, feats)
         new_xyz, got = m(xyz, feats)
@@ -886,7 +886,7 @@ def test_track_step_with_the_kernel_is_within_the_bench_limits(
     loop, ranges = s["loop"], s["ranges"]
     with open(f"port_bench/limits/{cell}.json") as f:
         limits = json.load(f)["limits"]
-    sa_mlp.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     for _ in range(3):
         pose_in, f = loop.pose, loop.f
         got = loop.advance(ranges)
@@ -1105,7 +1105,7 @@ def test_nbr_backbone_launches_a_kernel_a_stage(card, use_xyz_feat,
     net = PointNet2Msg(nocs_bottle().pointnet, 128,
                        use_xyz_feat=use_xyz_feat).to(card).eval()
     xyz = _nbr_cloud(2, 4096, 3, card, strided=use_xyz_feat)
-    neighbors.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     with torch.no_grad():
         got = net(xyz)
     assert neighbors.launch_counts == {"ball_query_cuda": 2,
@@ -1143,7 +1143,7 @@ def test_track_step_with_the_neighbour_kernels_equals_the_chain(
     torch.backends.cuda.matmul.allow_tf32 = False
     s = track.setup(ctx)
     loop, ranges = s["loop"], s["ranges"]
-    neighbors.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     for _ in range(3):
         pose_in, f = loop.pose, loop.f
         got = loop.advance(ranges)
@@ -1165,3 +1165,62 @@ def test_track_step_with_the_neighbour_kernels_equals_the_chain(
     # CoordNet's and RotNet's two ball-query and two 3-NN stages a step
     assert neighbors.launch_counts == {"ball_query_cuda": 3 * 2 * 2,
                                        "three_nn_cuda": 3 * 2 * 2}
+
+
+# ---------------------------------------------------------------------------
+# the kernels' one launch registry (ops/cuda_build.py)
+# ---------------------------------------------------------------------------
+
+def _total(span, name):
+    return span["counters"].get(name, 0) + sum(
+        _total(child, name) for child in span["children"])
+
+
+def test_a_replayed_step_counts_the_launches_of_a_traced_one(card, tmp_path):
+    """The benchmark's bottle nets and traffic cut to 2 streams: one step
+    traced (a recording profiler keeps it eager), then the same step called
+    until it replays its graph: the one launch registry grows alike for
+    the traced and the replayed call, kernel by kernel, and each traced net
+    pass counts 5 fused scales of 5 and 4 fused neighbour stages of 4."""
+    from port_bench.drivers import track
+    from port_bench.harness import Clock, Context, find_cell, load_spec
+
+    from captra_tpu_torch.tracking import tracker
+    from captra_tpu_torch.utils import profiling
+    c = find_cell(load_spec(), "bottle_points_b16")
+    c.traffic = dict(c.traffic, streams=2, frames=4)
+    ctx = Context(cell=c, seed=2 ** 31 + 22, seconds=0.0, trace=False,
+                  device=card, clock=Clock(), log=lambda msg: None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s = track.setup(ctx)
+    pcfg = track.port_config(c.config, c.traffic.get("track", {}))
+    step = tracker.make_track_step(pcfg, *s["nets"], device=card)
+    pose = s["loop"].pose
+    frame = {k: v[1] for k, v in s["frames"].items()}
+
+    def launched():
+        cuda_build.reset_launch_counts()
+        step(pose, frame)
+        torch.cuda.synchronize()
+        return {k: n for k, n in cuda_build.launch_counts.items() if n}
+    profiling.reset()
+    with profiling.trace(str(tmp_path)):
+        traced = launched()
+    root, = profiling.last_steps("track.step", 1)
+    profiling.reset()
+    step(pose, frame)                 # the signature's first call: eager
+    step(pose, frame)                 # captured
+    replays = tracker.graph_counts["replayed"]
+    replayed = launched()
+    assert tracker.graph_counts["replayed"] == replays + 1
+    assert replayed == traced
+    nets = [n for n in root["children"]
+            if n["name"] in ("track.coordnet", "track.rotnet")]
+    assert len(nets) >= 2
+    for net in nets:
+        assert {k: _total(net, k) for k in (
+            "sa_scales", "sa_fused", "nbr_stages", "nbr_fused")} == {
+            "sa_scales": 5, "sa_fused": 5, "nbr_stages": 4, "nbr_fused": 4}
+    assert traced["sa_mlp_cuda"] == 5 * len(nets)
+    assert traced["ball_query_cuda"] == traced["three_nn_cuda"] \
+        == 2 * len(nets)

@@ -14,7 +14,7 @@ import torch
 from captra_tpu import ops as jops
 from captra_tpu.ops.fps_pallas import fps_pallas_blocked_t, fps_pallas_t
 from captra_tpu_torch import ops
-from captra_tpu_torch.ops import fps
+from captra_tpu_torch.ops import cuda_build, fps
 
 
 def _planes(xyz):
@@ -141,7 +141,7 @@ def test_cpu_tensor_dispatches_to_plain(monkeypatch):
                         lambda x, n: calls.append((tuple(x.shape), n))
                         or torch.zeros(x.shape[0], n, dtype=torch.int32))
     monkeypatch.setenv("CAPTRA_FPS_BLOCKED", "1")
-    fps.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     ops.farthest_point_sample(torch.zeros(2, 2048, 3), 16)
     ops.farthest_point_sample(torch.zeros(1, 20480, 3), 16)
     assert calls == [((2, 2048, 3), 16), ((1, 20480, 3), 16)]

@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from captra_tpu_torch.config.presets import nocs_bottle
-from captra_tpu_torch.models.backbone import PointNet2Msg
-from captra_tpu_torch.ops import neighbors, pointops
+from captra_tpu_torch.models.backbone import PointNet2Msg, SetAbstractionMsg
+from captra_tpu_torch.ops import cuda_build, neighbors, pointops
 from captra_tpu_torch.utils import profiling
 from torch_port_helpers import tiny_config
 
@@ -174,7 +174,7 @@ def test_the_route(case, monkeypatch):
         xyz, new_xyz = xyz.to(dtype), new_xyz.to(dtype)
     elif case == "meta":
         xyz, new_xyz = xyz.to("meta"), new_xyz.to("meta")
-    assert neighbors.route(xyz, new_xyz) == "plain"
+    assert not cuda_build.takes_kernel(xyz, new_xyz)
     if case == "meta":
         return
     calls = _spy(monkeypatch)
@@ -213,6 +213,13 @@ def _traced(net, xyz, grad_mode, requires_grad):
     return root["children"][0]
 
 
+def _standing_in(kernel, twin):
+    def launch(*args):
+        cuda_build.count(kernel, neighbors._KERNELS.counter)
+        return twin(*args)
+    return launch
+
+
 @pytest.mark.parametrize("grad_mode,requires_grad,on_card", [
     (False, False, False),      # tracking: no_grad
     (True, False, False),       # training: the cloud takes no gradient
@@ -224,11 +231,15 @@ def test_the_tracer_counts_and_spans_the_stages(grad_mode, requires_grad,
                                                  on_card, monkeypatch):
     from captra_tpu_torch.config import schema
     if on_card:
-        monkeypatch.setattr(neighbors, "route", lambda *clouds: "kernel")
-        monkeypatch.setattr(neighbors, "ball_query_cuda",
-                            neighbors.ball_query_plain)
-        monkeypatch.setattr(neighbors, "three_nn_cuda",
-                            neighbors.three_nn_plain)
+        # every input takes the kernel's route (the SA scales the chain);
+        # each kernel's twin stands in, its launch counted by the seam
+        # under the counter the module registered
+        monkeypatch.setattr(cuda_build, "takes_kernel", lambda *t: True)
+        monkeypatch.setattr(SetAbstractionMsg, "fused",
+                            lambda self, xyz, feats: False)
+        for kernel, twin in (("ball_query_cuda", neighbors.ball_query_plain),
+                             ("three_nn_cuda", neighbors.three_nn_plain)):
+            monkeypatch.setattr(neighbors, kernel, _standing_in(kernel, twin))
     cfg = tiny_config(schema)
     net = PointNet2Msg(cfg.pointnet, 16, use_xyz_feat=True).eval()
     span = _traced(net, _cloud(2, 128, seed=7), grad_mode, requires_grad)

@@ -181,9 +181,10 @@ def test_the_tracer_counts_fused_scales(grad):
     root = profiling.last_steps("track.step", 1)[0]
     counters = root["children"][0]["counters"]
     profiling.reset()
-    n = len(sa_cfg.nsample_list)
-    assert counters.get("sa_scales") == n
-    assert counters.get("sa_fused", 0) == (0 if grad else n)
+    # the scales are counted by the backbone on either route; `sa_fused`
+    # counts kernel launches only, so the CPU twin counts none
+    assert counters.get("sa_scales") == len(sa_cfg.nsample_list)
+    assert counters.get("sa_fused", 0) == 0
 
 
 def _span(name, children=(), **counters):

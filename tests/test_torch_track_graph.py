@@ -29,7 +29,7 @@ from captra_tpu_torch.data.synthetic import (
 )
 from captra_tpu_torch.models.coordnet import CoordNet
 from captra_tpu_torch.models.rotnet import RotNet
-from captra_tpu_torch.ops import fps, pointops
+from captra_tpu_torch.ops import cuda_build, fps, pointops
 from captra_tpu_torch.pose.part_dof import Pose
 from captra_tpu_torch.tracking import tracker
 from torch_port_helpers import tiny_config
@@ -196,10 +196,9 @@ class _FakeGraph:
 
     def replay(self):
         g = self.owner
-        was = [dict(c) for c in tracker._LAUNCH_COUNTERS]
+        was = dict(cuda_build.launch_counts)
         new = self.body(g.carry, g.frame)
-        for c, w in zip(tracker._LAUNCH_COUNTERS, was):
-            c.update(w)
+        cuda_build.launch_counts.update(was)
         for out, x in zip(tracker._leaves(g.out), tracker._leaves(new)):
             out.copy_(x)
 
@@ -237,7 +236,7 @@ def _launching(coord):
     """CoordNet, counting one FPS launch a call (a CPU net launches
     none)."""
     def call(x):
-        fps.launch_counts["fps_cuda_batched"] += 1
+        cuda_build.count("fps_cuda_batched")
         return coord(x)
     return call
 
@@ -358,13 +357,12 @@ def _bench_case(card, cell: str, streams=None, track=None):
                            ("rotation", "translation", "scale")))
 
 
-def _launches() -> list:
-    return [dict(c) for c in tracker._LAUNCH_COUNTERS]
+def _launches() -> dict:
+    return dict(cuda_build.launch_counts)
 
 
-def _launch_growth(before: list) -> list:
-    return [{k: c[k] - b[k] for k in c}
-            for c, b in zip(tracker._LAUNCH_COUNTERS, before)]
+def _launch_growth(before: dict) -> dict:
+    return {k: n - before[k] for k, n in cuda_build.launch_counts.items()}
 
 
 @pytest.mark.cuda

@@ -738,7 +738,7 @@ def dp_card_steps(device, steps, dp=None, rank=0, world=1):
     import torch
     from captra_tpu_torch.config import get_config
     from captra_tpu_torch.data.synthetic import make_frame_batch
-    from captra_tpu_torch.ops import fps
+    from captra_tpu_torch.ops import cuda_build, fps
     from captra_tpu_torch.parallel import mesh
     from captra_tpu_torch.training.trainer import Trainer
     import dataclasses
@@ -755,7 +755,7 @@ def dp_card_steps(device, steps, dp=None, rank=0, world=1):
             batch, gen), rank, world)
         draws = mesh.tree_map(lambda x: x.to(device), draws)
         local = mesh.shard_batch(batch, rank, world)
-        fps.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         state, losses, _ = trainer.train_step(state, local, draws=draws)
         torch.cuda.synchronize()
         out["launches"].append({k: v for k, v in fps.launch_counts.items()
