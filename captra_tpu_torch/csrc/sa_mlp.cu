@@ -56,6 +56,29 @@
 // and sum one FMA as nvcc contracts it there, then ReLU, then the max.  On
 // the card its outputs have come out equal bit for bit to the chain's at
 // every shape the tracking cells run.
+//
+// The factored first layer.  In ball_group's order a neighbour row is its
+// point's cf feature channels, then its offset from the centre.  The
+// running sum after channel cf - 1 depends on the point alone, and sa2
+// gathers each of its N = 512 points into 16-32 of its S K = 8192 or
+// 16384 rows.  So where a scale has cf >= 16 and S K > N (ops/sa_mlp.py,
+// `factored`), sa_table_kernel computes that sum once a point for every
+// such scale of the stage, [B, N, sum of cout] in one launch, by the same
+// gather, stages and fmaf chain from channel 0 with no bias, and the
+// scale's first layer starts each row's sums from its point's entry and
+// runs the one chunk from channel cf: the three offset FMAs in the chain's
+// order, then padded channels, whose +0 products leave a sum that is never
+// -0 as it is.  The same products in the same order: the outputs are the
+// gathered route's bit for bit.  The padded work of a bottle net's five
+// scales falls by a fifth and its bound from 2.079 to 1.599 ms at B = 16,
+// plus the table's 0.020 ms (84 MFLOP a cloud in place of 2.0 GFLOP).
+// Measured on an H100 SXM (700 W; PERF.md): sa2 at B = 16, K = 64 0.818
+// -> 0.490 ms (39.5% of its new bound), K = 128 2.182 -> 1.557 ms (38.0%),
+// the table 0.042 ms (47% of its bound); a bottle net's scales 5.54 ->
+// 4.63 ms.  Each route is its own instance of the kernel, so the gathered
+// one compiles as before.  Weighed there: the offset channels' three FMAs
+// alone, outside the gathered stage (hidden layers ~17% slower in that
+// instance: sa2 K = 128 1.716 ms).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,6 +118,9 @@ struct Args {
   const int64_t* idx;    // [B, S, K], ball_query's indices
   float* out;            // [B, S, out_stride]; this scale's columns from
                          // out_offset
+  // the factored first layer (null: gathered): [B, N, table_stride], this
+  // scale's columns from table_offset
+  const float* table;
   int B, N, S, K, cf;
   int out_stride, out_offset, layers;
   // the shared-memory layout, from the wrapper (ops/sa_mlp.py)
@@ -102,7 +128,26 @@ struct Args {
   int x_floats;          // buffer X: even layers' outputs
   int y_floats;          // buffer Y: the gather's stages, odd layers'
   int smem_bytes;
+  int table_stride, table_offset;
   Layer layer[kMaxLayers];
+};
+
+// The table of a stage's factored first layers (sa_table_kernel).
+constexpr int kMaxTableScales = 4;
+
+struct TableScale {
+  const float* w;  // the scale's first nn.Linear weight [cout, ld]
+  int ld;
+  int cin;         // its channels the table sums: the features'
+  int cout;
+  int offset;      // its first column in the table
+};
+
+struct TableArgs {
+  const float* feats;  // [rows, cf]
+  float* out;          // [rows, stride]
+  int rows, cf, stride, scales;
+  TableScale scale[kMaxTableScales];
 };
 
 // channels padded to whole chunks
@@ -180,15 +225,20 @@ __device__ __forceinline__ void mma_chunk(const float* A, int c0,
 // gathered inputs a thread a chunk
 constexpr int kAPer = kRows * kDepth / kThreads;
 
-template <int TN>
-__device__ __forceinline__ void load_w(float (&r)[TN], const Layer& L,
-                                       int n0, int k0, int tid) {
+// The row stride of a layer's weights: a Layer's are [cout, cin], a
+// table scale's the first cin channels of [cout, ld].
+__device__ __forceinline__ int ld_of(const Layer& L) { return L.cin; }
+__device__ __forceinline__ int ld_of(const TableScale& L) { return L.ld; }
+
+template <int TN, class W>
+__device__ __forceinline__ void load_w(float (&r)[TN], const W& L, int n0,
+                                       int k0, int tid) {
 #pragma unroll
   for (int i = 0; i < TN; ++i) {
     const int e = tid + kThreads * i;
     const int n = n0 + e / kDepth, k = k0 + e % kDepth;
     r[i] = (n < L.cout && k < L.cin)
-               ? __ldg(L.w + static_cast<int64_t>(n) * L.cin + k)
+               ? __ldg(L.w + static_cast<int64_t>(n) * ld_of(L) + k)
                : 0.f;
   }
 }
@@ -203,11 +253,22 @@ __device__ __forceinline__ void store_w(float* W_s, const float (&r)[TN],
   }
 }
 
+// The offset channels after a gathered row's features: a scale's
+// neighbour xyz minus the centre; none in the table.
+__device__ __forceinline__ constexpr int rel_channels(const Args&) {
+  return 3;
+}
+__device__ __forceinline__ constexpr int rel_channels(const TableArgs&) {
+  return 0;
+}
+
 // The first layer's input chunk [kDepth channels from k0] x [kRows]:
 // channel c < cf is the neighbour's feature c, cf <= c < cf + 3 its xyz
-// minus the centre, zero beyond; element e = t + 512 i is row e / 16,
-// channel e % 16 (a half-warp reads 64 contiguous bytes of a feature row).
-__device__ __forceinline__ void load_a(float (&r)[kAPer], const Args& a,
+// minus the centre (in a scale), zero beyond; element e = t + 512 i is row
+// e / 16, channel e % 16 (a half-warp reads 64 contiguous bytes of a
+// feature row).
+template <class A>
+__device__ __forceinline__ void load_a(float (&r)[kAPer], const A& a,
                                        const int* rowoff, const float* rel,
                                        int k0, int tid) {
 #pragma unroll
@@ -217,7 +278,7 @@ __device__ __forceinline__ void load_a(float (&r)[kAPer], const Args& a,
     float v = 0.f;
     if (c < a.cf)
       v = __ldg(a.feats + static_cast<int64_t>(rowoff[row]) * a.cf + c);
-    else if (c < a.cf + 3)
+    else if (c < a.cf + rel_channels(a))
       v = rel[row * 4 + c - a.cf];
     r[i] = v;
   }
@@ -260,30 +321,62 @@ __device__ void gemm_resident(float (&acc)[8][TN], const float* A,
   }
 }
 
-// The first layer's products: its input gathered chunk by chunk into the
-// double-buffered stage A_s.  Ends with a barrier, as gemm_resident.
+// The factored first layer's start: each of a thread's rows from its
+// point's entry of the table (the chain's running sum after channel
+// cf - 1), its columns from n0 + TN tx.
 template <int TN>
-__device__ void gemm_gathered(float (&acc)[8][TN], const Args& a,
+__device__ __forceinline__ void load_table(float (&acc)[8][TN],
+                                           const Args& a, const int* rowoff,
+                                           const Layer& L, int n0,
+                                           int tid) {
+  const int ty = ty_of(tid), col0 = n0 + col_of<TN>(tx_of(tid), 0);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float* t = a.table +
+                     static_cast<int64_t>(rowoff[row_of(ty, i)]) *
+                         a.table_stride +
+                     a.table_offset + col0;
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      acc[i][j] = col0 + j < L.cout ? __ldg(t + j) : 0.f;
+  }
+}
+
+// The first layer's products: its input gathered chunk by chunk into the
+// double-buffered stage A_s (a scale's first layer, or a table's columns
+// of one scale: L.cin input channels).  kFromTable: a scale's factored
+// first layer, whose sums start from the table and run over the one chunk
+// from channel cf (the three offset channels, then padded zeros, which
+// add +0 products to a sum that is never -0).  Ends with a barrier, as
+// gemm_resident.
+template <int TN, bool kFromTable = false, class A, class W>
+__device__ void gemm_gathered(float (&acc)[8][TN], const A& a,
                               const int* rowoff, const float* rel,
-                              const Layer& L, int n0, float* A_s,
-                              float* W_s, int tid) {
+                              const W& L, int n0, float* A_s, float* W_s,
+                              int tid) {
   const int ty = ty_of(tid), tx = tx_of(tid);
+  int k0 = 0;
+  if constexpr (kFromTable) {
+    load_table<TN>(acc, a, rowoff, L, n0, tid);
+    k0 = a.cf;
+  } else {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  const int chunks = (L.cin + kDepth - 1) / kDepth;
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  }
+  const int chunks = (L.cin - k0 + kDepth - 1) / kDepth;
   float w[TN], x[kAPer];
-  load_w<TN>(w, L, n0, 0, tid);
-  load_a(x, a, rowoff, rel, 0, tid);
+  load_w<TN>(w, L, n0, k0, tid);
+  load_a(x, a, rowoff, rel, k0, tid);
   store_w<TN>(W_s, w, tid);
   store_a(A_s, x, tid);
   __syncthreads();
   for (int c = 0; c < chunks; ++c) {
     const bool more = c + 1 < chunks;
     if (more) {
-      load_w<TN>(w, L, n0, (c + 1) * kDepth, tid);
-      load_a(x, a, rowoff, rel, (c + 1) * kDepth, tid);
+      load_w<TN>(w, L, n0, k0 + (c + 1) * kDepth, tid);
+      load_a(x, a, rowoff, rel, k0 + (c + 1) * kDepth, tid);
     }
     const int cur = (c & 1) * kDepth * kStride;
     mma_chunk<TN>(A_s + cur, 0, W_s + cur, ty, tx, acc);
@@ -373,7 +466,8 @@ __device__ __forceinline__ void pool_last(const float (&acc)[8][TN],
   }
 }
 
-template <int TN>
+// kFactored: the first layer from the table (a.table), else gathered
+template <int TN, bool kFactored>
 __device__ void run_chunk(const Args& a, int li, int n0, const int* rowoff,
                           const float* rel, const float* in, float* X,
                           float* Y, float* W_s, const int (&centre)[8],
@@ -382,7 +476,7 @@ __device__ void run_chunk(const Args& a, int li, int n0, const int* rowoff,
   float* outbuf = (li & 1) ? Y : X;
   float acc[8][TN];
   if (li == 0)
-    gemm_gathered<TN>(acc, a, rowoff, rel, L, n0, Y, W_s, tid);
+    gemm_gathered<TN, kFactored>(acc, a, rowoff, rel, L, n0, Y, W_s, tid);
   else
     gemm_resident<TN>(acc, in, padded(a.layer[li - 1].cout), L, n0, W_s,
                       tid);
@@ -406,6 +500,8 @@ __device__ void run_chunk(const Args& a, int li, int n0, const int* rowoff,
   // the next chunk's products start with a barrier before its pooling
 }
 
+// One instance a first-layer route, so that each has its own registers.
+template <bool kFactored>
 __global__ void __launch_bounds__(kThreads, 1)
     sa_mlp_kernel(const __grid_constant__ Args a) {
   extern __shared__ float4 smem4[];
@@ -465,20 +561,53 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int n0 = 0; n0 < cout;) {
       const int rem = cout - n0;
       if (rem > 64) {
-        run_chunk<128 / kCols>(a, li, n0, rowoff, rel, in, X, Y, W_s,
-                               centre, b, s0, ncent, tid);
+        run_chunk<128 / kCols, kFactored>(a, li, n0, rowoff, rel, in, X, Y,
+                                          W_s, centre, b, s0, ncent, tid);
         n0 += 128;
       } else if (rem > 32) {
-        run_chunk<64 / kCols>(a, li, n0, rowoff, rel, in, X, Y, W_s, centre,
-                              b, s0, ncent, tid);
+        run_chunk<64 / kCols, kFactored>(a, li, n0, rowoff, rel, in, X, Y,
+                                         W_s, centre, b, s0, ncent, tid);
         n0 += 64;
       } else {
-        run_chunk<32 / kCols>(a, li, n0, rowoff, rel, in, X, Y, W_s, centre,
-                              b, s0, ncent, tid);
+        run_chunk<32 / kCols, kFactored>(a, li, n0, rowoff, rel, in, X, Y,
+                                         W_s, centre, b, s0, ncent, tid);
         n0 += 32;
       }
     }
     in = (li & 1) ? Y : X;
+  }
+}
+
+// The factored first layers' table of a stage: for each point p and each
+// factored scale s, T[p, offset_s + o] = the sum over c < cf of
+// W1_s[o, c] F[p, c], one fmaf chain from channel 0 up starting from 0 and
+// with no bias: the first cf steps of gemm_gathered's chain for the same
+// output.  A CTA takes 128 points x 128 columns of one scale, through the
+// same gather, stages and products as a scale's gathered first layer.
+__global__ void __launch_bounds__(kThreads, 1)
+    sa_table_kernel(const __grid_constant__ TableArgs a) {
+  __shared__ int rowoff[kRows];
+  __shared__ __align__(16) float A_s[kStageFloats];
+  __shared__ __align__(16) float W_s[kStageFloats];
+  const TableScale& sc = a.scale[blockIdx.y];
+  const int n0 = blockIdx.z * kChunk;
+  if (n0 >= sc.cout) return;
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kRows;
+  // rows past the end read the last point and are not written
+  if (tid < kRows) rowoff[tid] = min(r0 + tid, a.rows - 1);
+  __syncthreads();
+  float acc[8][4];
+  gemm_gathered<4>(acc, a, rowoff, nullptr, sc, n0, A_s, W_s, tid);
+  const int ty = ty_of(tid), col = n0 + col_of<4>(tx_of(tid), 0);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + row_of(ty, i);
+    if (row >= a.rows) continue;
+    float* dst = a.out + static_cast<int64_t>(row) * a.stride + sc.offset;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (col + j < sc.cout) dst[col + j] = acc[i][j];
   }
 }
 
@@ -500,13 +629,34 @@ int captra_sa_mlp(const void* args, void* stream) {
   if (a.layers < 1 || a.layers > kMaxLayers || a.K < 1 || a.K > kRows ||
       a.centres_per_tile < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(Args) =
+      a.table ? sa_mlp_kernel<true> : sa_mlp_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      sa_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      a.smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (a.S + a.centres_per_tile - 1) / a.centres_per_tile;
-  sa_mlp_kernel<<<a.B * tiles, kThreads, a.smem_bytes,
-                  static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<a.B * tiles, kThreads, a.smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int captra_sa_table_max_scales() { return kMaxTableScales; }
+int captra_sa_table_args_bytes() {
+  return static_cast<int>(sizeof(TableArgs));
+}
+
+// One launch for every factored scale of a stage: `args` points at a host
+// TableArgs (ops/sa_mlp.py builds it).
+int captra_sa_table(const void* args, void* stream) {
+  const TableArgs& a = *static_cast<const TableArgs*>(args);
+  if (a.scales < 1 || a.scales > kMaxTableScales || a.rows < 1 || a.cf < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int chunks = 0;
+  for (int s = 0; s < a.scales; ++s)
+    chunks = max(chunks, (a.scale[s].cout + kChunk - 1) / kChunk);
+  const dim3 grid((a.rows + kRows - 1) / kRows, a.scales, chunks);
+  sa_table_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 

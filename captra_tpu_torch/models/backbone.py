@@ -15,8 +15,9 @@ that take no gradient (in training too), its plain twin for any other
 input; each runs inside a `backbone.neighbors` span.  A set-abstraction
 scale in eval mode with BatchNorm, float32 and no gradient wanted takes
 `ops.sa_mlp.sa_scale` (on CUDA one hand-written kernel: gather, MLP and
-max-pool with no grouped activation in device memory; on the CPU its plain
-twin, today's arithmetic); any other scale runs the module chain
+max-pool with no grouped activation in device memory, its first layer
+factored per point where the shapes say so; on the CPU its plain twin,
+today's arithmetic); any other scale runs the module chain
 (`SetAbstractionMsg.fused`).  Both kernels route by the one rule of
 `ops.cuda_build.takes_kernel`.  The tracer's denominators are counted
 here, `nbr_stages` once a stage and `sa_scales` once a scale; the kernels'
@@ -29,7 +30,7 @@ from torch import nn
 from captra_tpu_torch import ops
 from captra_tpu_torch.config.schema import PointNetCfg, SAMsgCfg
 from captra_tpu_torch.models.blocks import BatchNorm, PointMLP
-from captra_tpu_torch.ops import neighbors, sa_mlp
+from captra_tpu_torch.ops import cuda_build, neighbors, sa_mlp
 from captra_tpu_torch.utils import profiling
 
 
@@ -94,17 +95,29 @@ class SetAbstractionMsg(nn.Module):
 
     def _fused_scales(self, xyz, new_xyz, feats, idxs):
         """Every scale through `sa_mlp.sa_scale`, each writing its columns
-        of one [B, S, out_dim] tensor (no concatenation)."""
+        of one [B, S, out_dim] tensor (no concatenation).  On the kernel's
+        route, the scales that `sa_mlp.factored` picks by shape take their
+        first layer from one `sa_mlp.sa_table_cuda` of the stage, each its
+        own columns."""
         rows = xyz.contiguous()
         feats = None if feats is None else feats.contiguous()
-        B, S = new_xyz.shape[:2]
+        (B, N), S = rows.shape[:2], new_xyz.shape[1]
+        cf = 0 if feats is None else feats.shape[-1]
+        layers = [scale_layers(getattr(self, f"scale_{i}"))
+                  for i in range(len(idxs))]
+        on_card = cuda_build.takes_kernel(rows, new_xyz, feats)
+        picked = [on_card and sa_mlp.factored(N, S, idx.shape[-1], cf)
+                  for idx in idxs]
+        table = sa_mlp.sa_table_cuda(feats, [ls[0].weight for ls, p in
+                                             zip(layers, picked) if p]) \
+            if any(picked) else None
         out = xyz.new_empty((B, S, self.out_dim))
-        offset = 0
-        for i, idx in enumerate(idxs):
-            mlp = getattr(self, f"scale_{i}")
-            sa_mlp.sa_scale(rows, new_xyz, feats, idx, scale_layers(mlp),
-                            out, offset)
-            offset += mlp.out_dim
+        offset = col = 0
+        for idx, ls, p in zip(idxs, layers, picked):
+            sa_mlp.sa_scale(rows, new_xyz, feats, idx, ls, out, offset,
+                            table if p else None, col)
+            offset += ls[-1].weight.shape[0]
+            col += ls[0].weight.shape[0] if p else 0
         return out
 
 

@@ -141,12 +141,13 @@ def ptxas_usage(name: str) -> list[str]:
 
 
 def _kernel_name(mangled: str) -> str:
-    """`fps_cta_kernel<512, 8>` from its mangled name (the mangled name
-    itself if it does not parse)."""
-    m = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?", mangled)
+    """`fps_cta_kernel<512, 8>` or `sa_mlp_kernel<true>` from its mangled
+    name (the mangled name itself if it does not parse)."""
+    m = re.search(r"\d+([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", mangled)
     if not m:
         return mangled
-    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    args = [v if t == "i" else ("false", "true")[int(v)]
+            for t, v in re.findall(r"L([ib])(\d+)E", m.group(2) or "")]
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
@@ -253,15 +254,18 @@ class Kernels:
     spells out.  `queries` are further entries (entry -> (restype,
     *argtypes)), `expect` is `bind`'s.  Each kernel is registered in
     `launch_counts`, and each launch adds one to the tracer counter
-    `counter` (None: none).  `launch_counts` here is the registry's view
-    of these kernels."""
+    `counter` (None: none; a dict: each kernel's own, none for a kernel it
+    leaves out).  `launch_counts` here is the registry's view of these
+    kernels."""
 
     def __init__(self, source: str, kernels: dict[str, tuple], error: str,
                  queries: dict[str, tuple] | None = None,
                  expect: dict[str, int] | None = None,
-                 counter: str | None = None):
+                 counter: str | dict[str, str] | None = None):
         self.source, self.kernels, self.error = source, kernels, error
         self.expect, self.counter = expect, counter
+        self.counters = (counter if isinstance(counter, dict)
+                         else dict.fromkeys(kernels, counter))
         self.argtypes = {entry: (INT, *args, PTR)
                          for entry, *args in kernels.values()}
         self.argtypes[error] = (ctypes.c_char_p, INT)
@@ -285,4 +289,4 @@ class Kernels:
         if err != 0:
             msg = getattr(lib, self.error)(err).decode()
             raise RuntimeError(f"{kernel} launch failed: {msg} ({err})")
-        count(kernel, self.counter)
+        count(kernel, self.counters.get(kernel))

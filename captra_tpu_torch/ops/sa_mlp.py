@@ -17,14 +17,25 @@ indices and does the rest:
                 `torch.amax`, the calls the module chain makes, so on the
                 CPU it gives today's chain's numbers bit for bit.
 
+On the kernel's route, a scale whose first layer reads many more
+neighbour rows than its stage has points takes that layer factored
+(`factored` is the rule, by shape): the products of the feature channels
+depend on the point alone, so `sa_table_cuda` computes them once a point
+for every such scale of a stage (one launch, the chain's own fmaf order;
+its twin `sa_table_plain`), and `sa_mlp_cuda` given that table starts each
+neighbour row's sum from its point's entry and adds the offset channels
+(its twin `sa_mlp_factored_plain`): the gathered route's sums, bit for
+bit.
+
 `sa_scale` routes by the seam's one rule (`cuda_build.takes_kernel`):
 float32 CUDA clouds that take no gradient launch the kernel, any other
-input takes `sa_mlp_plain`; there is no fallback.  The kernel launches
+input takes `sa_mlp_plain`; there is no fallback.  The kernels launch
 through `cuda_build.Kernels`, which counts each launch in the one registry
-(`launch_counts` is its view here) and in the tracer's `sa_fused` counter
-(`utils/profiling.count`): the counter counts kernels, not the CPU twin.
-`fits` says whether the kernel takes a scale's shape; the kernel's wrapper
-raises on any other.
+(`launch_counts` is its view here) and each scale's in the tracer's
+`sa_fused` counter (`utils/profiling.count`), a factored scale's in
+`sa_factored` too: the counters count kernels, not the CPU twins.  `fits`
+says whether the kernel takes a scale's shape; the kernel's wrapper raises
+on any other.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ import torch
 from torch.nn import functional as F
 
 from captra_tpu_torch.ops import cuda_build, pointops
+from captra_tpu_torch.utils import profiling
 
 SOURCE = "sa_mlp.cu"
 # the kernel's tiling (csrc/sa_mlp.cu): neighbour rows a CTA, floats a
@@ -50,6 +62,8 @@ HEADER_FLOATS = ROWS + 4 * ROWS
 STAGE_FLOATS = 2 * DEPTH * STRIDE
 # the dynamic shared memory a CTA may take on an H100
 SMEM_LIMIT = 232448
+# factored scales a table launch takes
+MAX_TABLE_SCALES = 4
 
 
 class Layer(NamedTuple):
@@ -75,22 +89,38 @@ class _CLayer(ctypes.Structure):
 class _CArgs(ctypes.Structure):
     _fields_ = [("xyz", ctypes.c_void_p), ("centres", ctypes.c_void_p),
                 ("feats", ctypes.c_void_p), ("idx", ctypes.c_void_p),
-                ("out", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("table", ctypes.c_void_p),
                 *[(n, ctypes.c_int) for n in (
                     "B", "N", "S", "K", "cf", "out_stride", "out_offset",
                     "layers", "centres_per_tile", "x_floats", "y_floats",
-                    "smem_bytes")],
+                    "smem_bytes", "table_stride", "table_offset")],
                 ("layer", _CLayer * MAX_LAYERS)]
 
 
+class _CTableScale(ctypes.Structure):
+    _fields_ = [("w", ctypes.c_void_p), ("ld", ctypes.c_int),
+                ("cin", ctypes.c_int), ("cout", ctypes.c_int),
+                ("offset", ctypes.c_int)]
+
+
+class _CTableArgs(ctypes.Structure):
+    _fields_ = [("feats", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                *[(n, ctypes.c_int) for n in ("rows", "cf", "stride",
+                                              "scales")],
+                ("scale", _CTableScale * MAX_TABLE_SCALES)]
+
+
 _KERNELS = cuda_build.Kernels(
-    SOURCE, {"sa_mlp_cuda": ("captra_sa_mlp", cuda_build.PTR)},
-    error="captra_sa_mlp_error_string", counter="sa_fused",
+    SOURCE, {"sa_mlp_cuda": ("captra_sa_mlp", cuda_build.PTR),
+             "sa_table_cuda": ("captra_sa_table", cuda_build.PTR)},
+    error="captra_sa_mlp_error_string", counter={"sa_mlp_cuda": "sa_fused"},
     expect={"captra_sa_mlp_rows": ROWS,
             "captra_sa_mlp_max_layers": MAX_LAYERS,
             "captra_sa_mlp_header_floats": HEADER_FLOATS,
             "captra_sa_mlp_stage_floats": STAGE_FLOATS,
-            "captra_sa_mlp_args_bytes": ctypes.sizeof(_CArgs)})
+            "captra_sa_mlp_args_bytes": ctypes.sizeof(_CArgs),
+            "captra_sa_table_max_scales": MAX_TABLE_SCALES,
+            "captra_sa_table_args_bytes": ctypes.sizeof(_CTableArgs)})
 launch_counts = _KERNELS.launch_counts
 
 
@@ -128,16 +158,47 @@ def fits(K: int, couts: Sequence[int]) -> bool:
     return layout(K, couts)[3] <= SMEM_LIMIT
 
 
-def sa_mlp_plain(xyz: torch.Tensor, new_xyz: torch.Tensor,
-                 feats: torch.Tensor | None, idx: torch.Tensor,
-                 layers: Sequence[Layer]) -> torch.Tensor:
-    """xyz [B, N, 3], centres new_xyz [B, S, 3], feats [B, N, C] or None,
-    ball-query indices idx [B, S, K] -> [B, S, C_out]: the neighbours'
-    (features..., xyz - centre), each layer's Linear, eval BatchNorm and
-    ReLU, the max over K."""
-    x = pointops.group_ball(idx, xyz, new_xyz, feats)
-    for L in layers:
-        x = F.linear(x, L.weight, L.bias)
+def factored(N: int, S: int, K: int, cf: int) -> bool:
+    """Whether a scale of S centres x K neighbours over N points with cf
+    feature channels takes its first layer factored: the features at least
+    one staged chunk wide and more neighbour rows than points, so the
+    table's products are fewer than the gathered layer's."""
+    return cf >= DEPTH and S * K > N
+
+
+def sa_table_plain(feats: torch.Tensor,
+                   weights: Sequence[torch.Tensor]) -> torch.Tensor:
+    """feats [B, N, cf], each factored scale's first Linear weight [cout,
+    cf + 3] -> the table [B, N, sum of cout]: each scale's products of the
+    feature channels alone, no bias, its columns after the previous
+    scale's."""
+    cf = feats.shape[-1]
+    return torch.cat([F.linear(feats, w[:, :cf]) for w in weights], dim=-1)
+
+
+def sa_mlp_factored_plain(xyz: torch.Tensor, new_xyz: torch.Tensor,
+                          idx: torch.Tensor, table: torch.Tensor,
+                          offset: int,
+                          layers: Sequence[Layer]) -> torch.Tensor:
+    """`sa_mlp_plain` with the first layer factored: each neighbour's entry
+    of table[..., offset:offset + cout] plus the offset channels' products
+    (the first weight's last three columns), then the bias and the rest as
+    `sa_mlp_plain`."""
+    L0 = layers[0]
+    cout = L0.weight.shape[0]
+    x = pointops.group_ball(idx, xyz, new_xyz,
+                            table[..., offset:offset + cout])
+    x = x[..., :cout] + F.linear(x[..., cout:], L0.weight[:, -3:], L0.bias)
+    return _mlp_max(x, layers, first_linear=False)
+
+
+def _mlp_max(x: torch.Tensor, layers: Sequence[Layer],
+             first_linear: bool = True) -> torch.Tensor:
+    """Each layer's Linear (the first layer's only with `first_linear`),
+    eval BatchNorm and ReLU, then the max over K."""
+    for i, L in enumerate(layers):
+        if i or first_linear:
+            x = F.linear(x, L.weight, L.bias)
         shape = x.shape
         x = F.batch_norm(x.reshape(-1, shape[-1]), L.mean, L.var, L.gamma,
                          L.beta, False, 0.0, L.eps).reshape(shape)
@@ -145,12 +206,22 @@ def sa_mlp_plain(xyz: torch.Tensor, new_xyz: torch.Tensor,
     return torch.amax(x, dim=2)
 
 
-def _check(xyz, new_xyz, feats, idx, layers, out, offset) -> list[int]:
+def sa_mlp_plain(xyz: torch.Tensor, new_xyz: torch.Tensor,
+                 feats: torch.Tensor | None, idx: torch.Tensor,
+                 layers: Sequence[Layer]) -> torch.Tensor:
+    """xyz [B, N, 3], centres new_xyz [B, S, 3], feats [B, N, C] or None,
+    ball-query indices idx [B, S, K] -> [B, S, C_out]: the neighbours'
+    (features..., xyz - centre), each layer's Linear, eval BatchNorm and
+    ReLU, the max over K."""
+    return _mlp_max(pointops.group_ball(idx, xyz, new_xyz, feats), layers)
+
+
+def _check(xyz, new_xyz, feats, idx, layers, out, offset, table,
+           table_offset) -> list[int]:
     """Raise on what the kernel does not take; return the layers' widths."""
     name = "sa_mlp_cuda"
     tensors = [xyz, new_xyz, idx, out, *(t for L in layers for t in L[:6])]
-    if feats is not None:
-        tensors.append(feats)
+    tensors += [t for t in (feats, table) if t is not None]
     cuda_build.check_operands(name, *tensors, ints=(idx,))
     B, N, _ = xyz.shape
     _, S, K = idx.shape
@@ -181,44 +252,88 @@ def _check(xyz, new_xyz, feats, idx, layers, out, offset) -> list[int]:
                          f"{SMEM_LIMIT} bytes of shared memory)")
     if B * N >= 2 ** 31 or B < 1 or S < 1 or N < 1:
         raise ValueError(f"{name}: B={B}, N={N}, S={S} out of range")
+    if table is not None and (
+            feats is None or table.dim() != 3 or table.shape[:2] != (B, N)
+            or not 0 <= table_offset <= table.shape[2] - widths[0]):
+        raise ValueError(f"{name}: table {tuple(table.shape)} has no "
+                         f"{widths[0]} columns at {table_offset} for "
+                         f"{B} x {N} points with features")
     return widths
 
 
 def sa_mlp_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor,
                 feats: torch.Tensor | None, idx: torch.Tensor,
                 layers: Sequence[Layer], out: torch.Tensor,
-                offset: int = 0) -> torch.Tensor:
+                offset: int = 0, table: torch.Tensor | None = None,
+                table_offset: int = 0) -> torch.Tensor:
     """The kernel: writes `sa_mlp_plain`'s [B, S, C_out] into out[...,
     offset:offset + C_out] (out [B, S, C], float32) and returns out.  The
     indices are `ball_query`'s, each in [0, N) (the kernel reads them as
-    they are)."""
-    widths = _check(xyz, new_xyz, feats, idx, layers, out, offset)
+    they are).  With `table` ([B, N, T], `sa_table_cuda`'s, this scale's
+    columns from `table_offset`) the first layer is factored: the same
+    outputs, bit for bit."""
+    widths = _check(xyz, new_xyz, feats, idx, layers, out, offset, table,
+                    table_offset)
     B, N, _ = xyz.shape
     _, S, K = idx.shape
     cpt, x, y, smem = layout(K, widths)
     args = _CArgs(xyz.data_ptr(), new_xyz.data_ptr(),
                   None if feats is None else feats.data_ptr(),
-                  idx.data_ptr(), out.data_ptr(), B, N, S, K,
+                  idx.data_ptr(), out.data_ptr(),
+                  None if table is None else table.data_ptr(), B, N, S, K,
                   0 if feats is None else feats.shape[-1], out.shape[2],
-                  offset, len(layers), cpt, x, y, smem)
+                  offset, len(layers), cpt, x, y, smem,
+                  0 if table is None else table.shape[2], table_offset)
     for i, L in enumerate(layers):
         args.layer[i] = _CLayer(
             L.weight.data_ptr(), L.bias.data_ptr(), L.gamma.data_ptr(),
             L.beta.data_ptr(), L.mean.data_ptr(), L.var.data_ptr(),
             float(L.eps), L.weight.shape[1], L.weight.shape[0], 0)
     _KERNELS.launch("sa_mlp_cuda", xyz.device, ctypes.byref(args))
+    if table is not None:
+        profiling.count("sa_factored")
+    return out
+
+
+def sa_table_cuda(feats: torch.Tensor,
+                  weights: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The table kernel: `sa_table_plain`'s [B, N, sum of cout] in one
+    launch, each entry the fmaf chain of the scale kernel's gathered first
+    layer cut after the feature channels."""
+    name = "sa_table_cuda"
+    cuda_build.check_operands(name, feats, *weights)
+    B, N, cf = feats.shape
+    if (not 1 <= len(weights) <= MAX_TABLE_SCALES or cf < 1
+            or B * N >= 2 ** 31
+            or any(w.dim() != 2 or w.shape[1] < cf for w in weights)):
+        raise ValueError(f"{name}: feats {tuple(feats.shape)} with weights "
+                         f"{[tuple(w.shape) for w in weights]} (1 to "
+                         f"{MAX_TABLE_SCALES} scales of >= {cf} channels)")
+    out = torch.empty((B, N, sum(w.shape[0] for w in weights)),
+                      dtype=feats.dtype, device=feats.device)
+    args = _CTableArgs(feats.data_ptr(), out.data_ptr(), B * N, cf,
+                       out.shape[2], len(weights))
+    col = 0
+    for i, w in enumerate(weights):
+        args.scale[i] = _CTableScale(w.data_ptr(), w.shape[1], cf,
+                                     w.shape[0], col)
+        col += w.shape[0]
+    _KERNELS.launch(name, feats.device, ctypes.byref(args))
     return out
 
 
 def sa_scale(xyz: torch.Tensor, new_xyz: torch.Tensor,
              feats: torch.Tensor | None, idx: torch.Tensor,
              layers: Sequence[Layer], out: torch.Tensor,
-             offset: int = 0) -> torch.Tensor:
+             offset: int = 0, table: torch.Tensor | None = None,
+             table_offset: int = 0) -> torch.Tensor:
     """One fused scale into out[..., offset:offset + C_out]: clouds that
-    `cuda_build.takes_kernel` sends to the kernel -> `sa_mlp_cuda`; any
-    other on the CPU or CUDA -> `sa_mlp_plain`."""
+    `cuda_build.takes_kernel` sends to the kernel -> `sa_mlp_cuda`, its
+    first layer factored where a `table` is given; any other on the CPU or
+    CUDA -> `sa_mlp_plain` (the table only spares the kernel work)."""
     if cuda_build.takes_kernel(xyz, new_xyz, feats):
-        return sa_mlp_cuda(xyz, new_xyz, feats, idx, layers, out, offset)
+        return sa_mlp_cuda(xyz, new_xyz, feats, idx, layers, out, offset,
+                           table, table_offset)
     if xyz.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused set-abstraction scale for device "
                          f"{xyz.device}")

@@ -432,6 +432,9 @@ SA_LAUNCHES: dict = {}
 # a net's pass in eval mode, BatchNorm and float32 launches one a scale:
 # sa1's three and sa2's two; bfloat16, GroupNorm and training launch none
 SA_SCALES = 5
+# the factored first layers' table (`sa_table_cuda`) by run, beside
+# SA_LAUNCHES: one a net's pass, for sa2's two scales
+SA_TABLES: dict = {}
 
 
 # the neighbour selection kernels' launches (`ops/neighbors.py`) by run,
@@ -458,6 +461,7 @@ def read_launches(path: str) -> dict:
     from captra_tpu_torch.ops import cuda_build
     got = dict(cuda_build.launch_counts)
     SA_LAUNCHES[path] = SA_LAUNCHES.get(path, 0) + got["sa_mlp_cuda"]
+    SA_TABLES[path] = SA_TABLES.get(path, 0) + got["sa_table_cuda"]
     total = NBR_LAUNCHES.setdefault(path, dict.fromkeys(NBR_STAGES, 0))
     for k in total:
         total[k] += got[k]
@@ -473,12 +477,15 @@ def check_nbr(name: str, got: dict, passes: int, dev: torch.device) -> None:
                              f"expected {want}")
 
 
-def check_sa(name: str, got: int, want: int, dev: torch.device) -> None:
-    """A run's fused-scale launches as predicted (on the card: the CPU
-    takes the plain twin, which launches nothing)."""
-    if dev.type == "cuda" and got != want:
-        raise AssertionError(f"{name}: {got} sa_mlp_cuda launches, "
-                             f"expected {want}")
+def check_sa(name: str, got: int, want: int, dev: torch.device,
+             tables: int) -> None:
+    """A run's fused-scale launches as predicted, and its tables: one a
+    net's pass of SA_SCALES scales (on the card: the CPU takes the plain
+    twins, which launch nothing)."""
+    if dev.type == "cuda" and (got, tables) != (want, want // SA_SCALES):
+        raise AssertionError(f"{name}: {got} sa_mlp_cuda and {tables} "
+                             f"sa_table_cuda launches, expected {want} and "
+                             f"{want // SA_SCALES}")
 
 
 def time_ms(fn, reps: int, warmup: int = 2, launches: int = 1) -> float:
@@ -822,30 +829,54 @@ SA_CELLS = (
 )
 
 
-def sa_bound_ms(B, N, S, K, cf, dims) -> tuple[float, str]:
-    """Least time of one fused scale on this card: its products (2 FLOP a
-    multiply-add, every neighbour slot) at the float32 peak against its
-    bytes (the xyz and feature tables, centres, indices and weights read
-    once, the pooled rows written once) at the HBM peak."""
-    macs, cin, weights = 0, cf + 3, 0
-    for d in dims:
-        macs += cin * d
-        weights += cin * d + 5 * d
-        cin = d
-    flops = 2.0 * B * S * K * macs
-    nbytes = 4 * (B * N * (cf + 3) + B * S * 3 + weights + B * S * cin) \
-        + 8 * B * S * K
+def _bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """Least time on this card of `flops` at the float32 peak and `nbytes`
+    at the HBM peak, the larger, and which it is."""
     ops_ms = flops / FP32_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms
                                    else "bytes")
 
 
+def sa_bound_ms(B, N, S, K, cf, dims,
+                factored: bool = False) -> tuple[float, str]:
+    """Least time of one fused scale on this card: its products (2 FLOP a
+    multiply-add, every neighbour slot) at the float32 peak against its
+    bytes (the xyz and feature tables, centres, indices and weights read
+    once, the pooled rows written once) at the HBM peak.  `factored`: the
+    first layer's products of the 3 offset channels only, the stage's
+    table (its columns, B x N x dims[0]) read in place of the features."""
+    macs, cin, weights = 0, cf + 3, 0
+    for i, d in enumerate(dims):
+        macs += (3 if factored and i == 0 else cin) * d
+        weights += cin * d + 5 * d
+        cin = d
+    flops = 2.0 * B * S * K * macs
+    point_floats = dims[0] + 3 if factored else cf + 3
+    nbytes = 4 * (B * N * point_floats + B * S * 3 + weights + B * S * cin) \
+        + 8 * B * S * K
+    return _bound(flops, nbytes)
+
+
+def sa_table_bound_ms(B, N, cf, couts) -> tuple[float, str]:
+    """Least time of one table launch: B x N x cf x sum(couts)
+    multiply-adds against the features and weights read once and the
+    table written once."""
+    flops = 2.0 * B * N * cf * sum(couts)
+    nbytes = 4 * (B * N * cf + cf * sum(couts) + B * N * sum(couts))
+    return _bound(flops, nbytes)
+
+
 def phase_sa_mlp() -> list:
     """The fused set-abstraction kernel at every scale the tracking cells
     run: against the module chain on the card (`sa_mlp_plain`: the same
     aten calls as the chain, so the plain twin and the library chain are
-    one timing), its time, the chain's and the bound (CUDA events)."""
+    one timing), its time, the chain's and the bound (CUDA events).  sa2's
+    scales on both routes: the gathered first layer and the factored one
+    (equal bit for bit), each beside its bound, and the stage's table
+    (`sa_table_cuda`) beside its bound and its twin; `path_ms` is what the
+    main path runs (sa2: the factored scale, and the table a row of its
+    own)."""
     from captra_tpu_torch.config.presets import nocs_bottle
     from captra_tpu_torch.models.backbone import scale_layers
     from captra_tpu_torch.ops import cuda_build, pointops, sa_mlp
@@ -872,6 +903,35 @@ def phase_sa_mlp() -> list:
             new_xyz = pointops.gather_xyz(
                 xyz, pointops.farthest_point_sample(xyz, sa_cfg.npoint))
             N, S = xyz.shape[1], sa_cfg.npoint
+            table, col = None, 0
+            if stage == "sa2":
+                weights = [getattr(m, f"scale_{i}").dense_0.weight.detach()
+                           for i in range(len(sa_cfg.nsample_list))]
+                couts = [w.shape[0] for w in weights]
+                with torch.no_grad():
+                    table = sa_mlp.sa_table_cuda(feats, weights)
+                    twin = sa_mlp.sa_table_plain(feats, weights)
+                    t_abs = float((table - twin).abs().max())
+                    t_err = t_abs / float(twin.abs().max())
+                    t_ms = time_ms(lambda: sa_mlp.sa_table_cuda(
+                        feats, weights), reps=20)
+                    tw_ms = time_ms(lambda: sa_mlp.sa_table_plain(
+                        feats, weights), reps=20, launches=4)
+                bound, by = sa_table_bound_ms(B, N, cf, couts)
+                rows.append(dict(where=where, stage=stage, scale="table",
+                                 B=B, N=N, cf=cf, couts=couts,
+                                 kernel_ms=t_ms, path_ms=t_ms,
+                                 chain_ms=tw_ms, bound_ms=bound,
+                                 path_bound_ms=bound, bound_by=by,
+                                 rel_err=t_err, max_abs_err=t_abs))
+                log(f"kernel sa_table_cuda {where} [{B},{N},{cf}]->"
+                    f"{couts}: {t_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
+                    f"{100 * bound / t_ms:.1f}%), twin (cuBLAS) "
+                    f"{tw_ms:.4f} ms, max |kernel - twin| {t_err:.3g} of "
+                    "the largest entry")
+                if not t_err <= 1e-5:
+                    raise AssertionError(f"sa_table_cuda {where}: {t_err:.3g}"
+                                         " from its twin")
             for i, (radius, K) in enumerate(zip(sa_cfg.radius_list,
                                                 sa_cfg.nsample_list)):
                 mlp = getattr(m, f"scale_{i}")
@@ -898,6 +958,7 @@ def phase_sa_mlp() -> list:
                 bound, by = sa_bound_ms(B, N, S, K, cf, dims)
                 row = dict(where=where, stage=stage, scale=i, B=B, N=N, S=S,
                            K=K, cf=cf, dims=list(dims), kernel_ms=k_ms,
+                           path_ms=k_ms, path_bound_ms=bound,
                            chain_ms=c_ms, bound_ms=bound, bound_by=by,
                            rel_err=err, max_abs_err=abs_err)
                 rows.append(row)
@@ -910,6 +971,29 @@ def phase_sa_mlp() -> list:
                     raise AssertionError(f"sa_mlp_cuda {where} {stage} "
                                          f"scale {i}: {err:.3g} from the "
                                          "chain")
+                if table is None:
+                    continue
+                fact = torch.empty_like(out)
+                with torch.no_grad():
+                    def factored():
+                        sa_mlp.sa_mlp_cuda(xyz, new_xyz, feats, idx, layers,
+                                           fact, 0, table, col)
+                    factored()
+                    f_ms = time_ms(factored, reps=10)
+                if not torch.equal(fact, out):
+                    raise AssertionError(f"sa_mlp_cuda {where} {stage} scale "
+                                         f"{i}: the factored route differs "
+                                         "from the gathered one")
+                col += dims[0]
+                f_bound, f_by = sa_bound_ms(B, N, S, K, cf, dims, True)
+                row.update(factored_ms=f_ms, factored_bound_ms=f_bound,
+                           factored_bound_by=f_by, path_ms=f_ms,
+                           path_bound_ms=f_bound)
+                log(f"kernel sa_mlp_cuda {where} {stage} scale {i} factored:"
+                    f" {f_ms:.4f} ms, bound {f_bound:.4f} ms ({f_by}, "
+                    f"{100 * f_bound / f_ms:.1f}%); gathered {k_ms:.4f} ms "
+                    f"({100 * bound / k_ms:.1f}% of its bound); equal bit "
+                    "for bit")
     return rows
 
 
@@ -1148,6 +1232,7 @@ def timed_run(name: str, track, B: int, frames: int, dev: torch.device,
     launches = dict(fps.launch_counts)
     got = read_launches(name.replace(" ", "_"))
     sa, nbr = got["sa_mlp_cuda"], {k: got[k] for k in NBR_STAGES}
+    tables = got["sa_table_cuda"]
     for f in ("rotation", "translation", "scale"):
         if not bool(torch.isfinite(getattr(aux.pose, f)).all()):
             raise AssertionError(f"{name}: non-finite {f}")
@@ -1162,7 +1247,7 @@ def timed_run(name: str, track, B: int, frames: int, dev: torch.device,
     prof = (profile_window(lambda: track(4), 3, B, profile,
                            tag=name.replace(" ", "_")) if profile else None)
     ms = float(np.median(steps_ms))
-    return dict(B=B, launches=launches, sa_launches=sa,
+    return dict(B=B, launches=launches, sa_launches=sa, sa_tables=tables,
                 nbr_launches=nbr, ms_per_step=ms,
                 ms_per_step_runs=steps_ms, frames_per_s=B * 1e3 / ms,
                 plain_fps_diff=diff, profile=prof), aux
@@ -1299,7 +1384,8 @@ def check_launches(sliced: dict, runs=SLICE_RUNS, frames: int = T) -> None:
                                  f"expected {want}")
         nets = 0 if name.startswith(BF16_PREFIX) else 2
         check_sa(f"slice {name}", sliced["runs"][name]["sa_launches"],
-                 nets * SA_SCALES * passes * tracked, torch.device("cuda"))
+                 nets * SA_SCALES * passes * tracked, torch.device("cuda"),
+                 sliced["runs"][name]["sa_tables"])
         # the clouds stay float32 in bfloat16 nets: 2 nets in every run
         check_nbr(f"slice {name}", sliced["runs"][name]["nbr_launches"],
                   2 * passes * tracked, torch.device("cuda"))
@@ -1567,7 +1653,8 @@ def check_otf_launches(otf: dict, frames: int = T) -> None:
                                  f"{run['launches']}, expected {want}")
         nets = 0 if name.startswith(BF16_PREFIX) else 2
         check_sa(f"otf {name}", run["sa_launches"],
-                 nets * SA_SCALES * tracked, torch.device("cuda"))
+                 nets * SA_SCALES * tracked, torch.device("cuda"),
+                 run["sa_tables"])
         check_nbr(f"otf {name}", run["nbr_launches"], 2 * tracked,
                   torch.device("cuda"))
 
@@ -1651,6 +1738,7 @@ def phase_init_search(config=None, device: str = "cuda",
     launches = dict(fps.launch_counts)
     got = read_launches("init_search")
     sa, nbr = got["sa_mlp_cuda"], {k: got[k] for k in NBR_STAGES}
+    tables = got["sa_table_cuda"]
     with plain_fps_on_card():
         plain_found = search()
     diff = _max_pose_diff(found, plain_found)
@@ -1666,13 +1754,12 @@ def phase_init_search(config=None, device: str = "cuda",
         raise AssertionError(f"init_search: FPS launches {launches}, "
                              f"expected {want}")
     # the search runs CoordNet alone: its five scales a pass
-    if dev.type == "cuda" and sa != SA_SCALES * passes * REPEATS:
-        raise AssertionError(f"init_search: {sa} sa_mlp_cuda launches, "
-                             f"expected {SA_SCALES * passes * REPEATS}")
+    check_sa("init_search", sa, SA_SCALES * passes * REPEATS, dev, tables)
     check_nbr("init_search", nbr, passes * REPEATS, dev)
     ms = float(np.median(search_ms))
     out = {"search": dict(B=1, K=INIT_SEARCH_K, ms=ms, ms_runs=search_ms,
                           launches=launches, sa_launches=sa,
+                          sa_tables=tables,
                           nbr_launches=nbr,
                           plain_fps_diff=diff)}
     log(f"init_search: K={INIT_SEARCH_K} candidates, {passes} passes, "
@@ -1698,7 +1785,8 @@ def phase_init_search(config=None, device: str = "cuda",
         raise AssertionError(f"init_search track_b1: FPS launches a frame "
                              f"{got}")
     check_sa("init_search track_b1", out["track_b1"]["sa_launches"],
-             2 * SA_SCALES * REPEATS * (frames - 1), dev)
+             2 * SA_SCALES * REPEATS * (frames - 1), dev,
+             out["track_b1"]["sa_tables"])
     check_nbr("init_search track_b1", out["track_b1"]["nbr_launches"],
               2 * REPEATS * (frames - 1), dev)
     if kernels is not None:
@@ -4364,23 +4452,42 @@ def main() -> int:
             "shapes": cases,
         })
     # the fused scale's headline: a step's five scales of its first cell
-    head = [r for r in sa_rows if r["where"] == SA_CELLS[0][0]]
+    # as the main path runs them (sa2 factored), and the table's
+    head = [r for r in sa_rows if r["where"] == SA_CELLS[0][0]
+            and r["scale"] != "table"]
+    tables = [r for r in sa_rows if r["scale"] == "table"]
     line.append({
         "name": "sa_mlp_cuda", "route": "cuda",
         "source": "captra_tpu_torch/csrc/sa_mlp.cu",
         "replaces": "captra_tpu/models/backbone.py (the MSG scale; no "
                     "Pallas kernel)",
         "launches": sum(SA_LAUNCHES.values()),
-        "max_abs_err": max(r["max_abs_err"] for r in sa_rows),
-        "ms": sum(r["kernel_ms"] for r in head),
+        "max_abs_err": max(r["max_abs_err"] for r in sa_rows
+                           if r["scale"] != "table"),
+        "ms": sum(r["path_ms"] for r in head),
         "plain_ms": sum(r["chain_ms"] for r in head),
-        "bound_ms": sum(r["bound_ms"] for r in head),
+        "bound_ms": sum(r["path_bound_ms"] for r in head),
         "bound_by": "/".join(sorted({r["bound_by"] for r in head})),
         # the plain twin makes the chain's own aten calls: one timing
         "library_ms": sum(r["chain_ms"] for r in head),
         "at": f"{SA_CELLS[0][0]}, a step's {len(head)} scales",
         "launches_by_path": dict(SA_LAUNCHES),
         "shapes": sa_rows,
+    })
+    t_head = tables[0]
+    line.append({
+        "name": "sa_table_cuda", "route": "cuda",
+        "source": "captra_tpu_torch/csrc/sa_mlp.cu",
+        "replaces": "the feature channels' products of sa2's gathered first "
+                    "layers (no Pallas kernel)",
+        "launches": sum(SA_TABLES.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in tables),
+        "ms": t_head["kernel_ms"], "plain_ms": t_head["chain_ms"],
+        "bound_ms": t_head["bound_ms"], "bound_by": t_head["bound_by"],
+        "library_ms": t_head["chain_ms"],
+        "at": f"{t_head['where']}, sa2's table",
+        "launches_by_path": dict(SA_TABLES),
+        "shapes": tables,
     })
     line.extend(neighbor_entries(nbr_rows))
     log(json.dumps({"slice": sliced}))

@@ -39,6 +39,11 @@ def test_ptxas_usage_names_each_kernel(monkeypatch):
     ("_ZN12_GLOBAL__N_118fps_cluster_kernelILi5EEEvPKfiiiPi",
      "fps_cluster_kernel<5>"),
     ("_ZN12_GLOBAL__N_118fps_blocked_kernelEPKfiiPi", "fps_blocked_kernel"),
+    # the fused set-abstraction kernel's two first-layer routes
+    ("_ZN41_GLOBAL__N__49920b4b_9_sa_mlp_cu_3280c32c13sa_mlp_kernelILb1EEEv"
+     "NS_4ArgsE", "sa_mlp_kernel<true>"),
+    ("_ZN41_GLOBAL__N__49920b4b_9_sa_mlp_cu_3280c32c13sa_mlp_kernelILb0EEEv"
+     "NS_4ArgsE", "sa_mlp_kernel<false>"),
     ("not_a_mangled_name", "not_a_mangled_name"),
 ])
 def test_kernel_name_demangles_template_arguments(mangled, name):

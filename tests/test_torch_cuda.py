@@ -742,9 +742,16 @@ def _sa_layers(mlp, dtype=torch.float32, device="cpu"):
 
 def _check_scales(m, xyz, feats, new_xyz):
     """Each scale of module m: the kernel against the chain on the card
-    (`sa_mlp_plain`, cuBLAS) and both against a float64 copy on the CPU."""
+    (`sa_mlp_plain`, cuBLAS) and both against a float64 copy on the CPU;
+    where `sa_mlp.factored` picks the scale, its factored route (from the
+    stage's table) equal to the gathered one bit for bit."""
     from captra_tpu_torch.ops import sa_mlp
     B, S = new_xyz.shape[:2]
+    cf = 0 if feats is None else feats.shape[-1]
+    table = None if cf == 0 else sa_mlp.sa_table_cuda(
+        feats, [getattr(m, f"scale_{i}").dense_0.weight.detach()
+                for i in range(len(m.cfg.nsample_list))])
+    col = 0
     for i, (radius, k) in enumerate(zip(m.cfg.radius_list,
                                         m.cfg.nsample_list)):
         mlp = getattr(m, f"scale_{i}")
@@ -752,6 +759,12 @@ def _check_scales(m, xyz, feats, new_xyz):
         layers = _sa_layers(mlp, device=xyz.device)
         out = torch.full((B, S, mlp.out_dim + 5), -7.0, device=xyz.device)
         sa_mlp.sa_mlp_cuda(xyz, new_xyz, feats, idx, layers, out, 3)
+        if table is not None and sa_mlp.factored(xyz.shape[1], S, k, cf):
+            fact = torch.full_like(out, -7.0)
+            sa_mlp.sa_mlp_cuda(xyz, new_xyz, feats, idx, layers, fact, 3,
+                               table, col)
+            assert torch.equal(fact, out), i
+        col += mlp.dense_0.weight.shape[0]
         chain = sa_mlp.sa_mlp_plain(xyz, new_xyz, feats, idx, layers)
         torch.cuda.synchronize()
         ref = sa_mlp.sa_mlp_plain(
@@ -801,6 +814,98 @@ def test_sa_kernel_ragged_tiles_and_widths(card, S, K, dims, cf):
     m = _sa_module(sa_cfg, cf, S + K, card)
     xyz, feats = _sa_inputs(3, 300, cf, S, card)
     new_xyz = ops.gather_xyz(xyz, ops.farthest_point_sample(xyz, S))
+    _check_scales(m, xyz, feats, new_xyz)
+
+
+def _sa1_features(B, use_xyz_feat, seed, device):
+    """What sa2 reads in a tracking step: a cloud of 4096 points through a
+    seeded sa1 (CoordNet's with the cloud as its features, RotNet's with
+    none) on the kernels' route, -> (sa1's centres, their 320 channels)."""
+    from captra_tpu_torch.config.presets import nocs_bottle
+    pn = nocs_bottle().pointnet
+    cf = 3 if use_xyz_feat else 0
+    sa1 = _sa_module(pn.sa1, cf, seed, device)
+    xyz = _sa_inputs(B, 4096, 0, seed, device)[0]
+    with torch.no_grad():
+        return sa1(xyz, xyz if use_xyz_feat else None)
+
+
+def _table_against_its_twin(feats, weights):
+    """The table kernel against its twin (`sa_table_plain`, cuBLAS), both
+    against a float64 copy: the kernel within SA_ORDER_FACTOR x the twin's
+    distance plus SA_FLOOR of the largest entry.  Returns the table."""
+    from captra_tpu_torch.ops import sa_mlp
+    got = sa_mlp.sa_table_cuda(feats, weights)
+    twin = sa_mlp.sa_table_plain(feats, weights)
+    torch.cuda.synchronize()
+    ref = sa_mlp.sa_table_plain(feats.cpu().double(),
+                                [w.cpu().double() for w in weights])
+    scale = float(ref.abs().max())
+    err = float((got.cpu().double() - ref).abs().max())
+    err_twin = float((twin.cpu().double() - ref).abs().max())
+    print(f"table {tuple(got.shape)}: kernel {err / scale:.3g}, twin "
+          f"{err_twin / scale:.3g} of {scale:.3g}")
+    assert err <= SA_ORDER_FACTOR * err_twin + SA_FLOOR * scale
+    return got
+
+
+@pytest.mark.parametrize("B", [8, 16, 32, 64])
+@pytest.mark.parametrize("net", ["coordnet", "rotnet"])
+def test_sa2_factored_route_is_the_gathered_route_bit_for_bit(card, B, net):
+    # sa2 at every batch the paths give it (drawers CoordNet 8, bottle 16,
+    # drawers RotNet 32, the init search 64) on sa1's own outputs: the
+    # module (factored on the card) equals each scale's gathered launch
+    from captra_tpu_torch.config.presets import nocs_bottle
+    from captra_tpu_torch.ops import sa_mlp
+    pn = nocs_bottle().pointnet
+    l1_xyz, l1 = _sa1_features(B, net == "coordnet", B, card)
+    sa2 = _sa_module(pn.sa2, 320, B + 1, card)
+    weights = [getattr(sa2, f"scale_{i}").dense_0.weight.detach()
+               for i in range(2)]
+    table = _table_against_its_twin(l1, weights)
+    cuda_build.reset_launch_counts()
+    with torch.no_grad():
+        new_xyz, got = sa2(l1_xyz, l1)
+    assert sa_mlp.launch_counts["sa_mlp_cuda"] == 2
+    assert sa_mlp.launch_counts["sa_table_cuda"] == 1
+    col = off = 0
+    for i, (radius, k) in enumerate(zip(pn.sa2.radius_list,
+                                        pn.sa2.nsample_list)):
+        assert sa_mlp.factored(l1.shape[1], pn.sa2.npoint, k, 320)
+        idx = ops.ball_query(radius, k, l1_xyz, new_xyz)
+        layers = _sa_layers(getattr(sa2, f"scale_{i}"), device=card)
+        width = layers[-1].weight.shape[0]
+        gathered = torch.empty(B, pn.sa2.npoint, width, device=card)
+        factored = torch.empty_like(gathered)
+        sa_mlp.sa_mlp_cuda(l1_xyz, new_xyz, l1, idx, layers, gathered)
+        sa_mlp.sa_mlp_cuda(l1_xyz, new_xyz, l1, idx, layers, factored, 0,
+                           table, col)
+        assert torch.equal(factored, gathered), i
+        assert torch.equal(got[..., off:off + width], gathered), i
+        col += layers[0].weight.shape[0]
+        off += width
+
+
+@pytest.mark.parametrize("B,N,S,nsample,mlps,cf", [
+    (3, 300, 43, (7,), ((40, 24),), 20),      # S.K = 301, just above N
+    (2, 200, 9, (48, 32), ((130,), (64, 32)), 33),   # one layer, 2 chunks
+    (1, 129, 5, (128,), ((64, 96, 128),), 16),  # one chunk of features
+    (3, 300, 21, (64, 30), ((200, 32), (24, 196, 40)), 45),
+])
+def test_sa_factored_route_ragged(card, B, N, S, nsample, mlps, cf):
+    # features not a multiple of a chunk, B x N not a multiple of the
+    # table's 128 rows, columns in several chunks and several scales
+    from captra_tpu_torch.config.schema import SAMsgCfg
+    from captra_tpu_torch.ops import sa_mlp
+    sa_cfg = SAMsgCfg(npoint=S, radius_list=(0.3, 0.5)[:len(nsample)],
+                      nsample_list=nsample, mlp_list=mlps)
+    m = _sa_module(sa_cfg, cf, S + cf, card)
+    xyz, feats = _sa_inputs(B, N, cf, S, card)
+    new_xyz = ops.gather_xyz(xyz, ops.farthest_point_sample(xyz, S))
+    assert all(sa_mlp.factored(N, S, k, cf) for k in nsample)
+    _table_against_its_twin(feats, [getattr(m, f"scale_{i}").dense_0
+                                    .weight.detach()
+                                    for i in range(len(nsample))])
     _check_scales(m, xyz, feats, new_xyz)
 
 
@@ -909,8 +1014,10 @@ def test_track_step_with_the_kernel_is_within_the_bench_limits(
             print(f"frame {f} {k}: {float(d.max()):.3g} "
                   f"(limit {limits[k]})")
             assert float(d.max()) <= limits[k], k
-    # CoordNet's and RotNet's sa1 and sa2: 5 scales a net a step
+    # CoordNet's and RotNet's sa1 and sa2: 5 scales a net a step, and
+    # one table a net for sa2's factored first layers
     assert sa_mlp.launch_counts["sa_mlp_cuda"] == 3 * 2 * 5
+    assert sa_mlp.launch_counts["sa_table_cuda"] == 3 * 2
 
 
 # ---------------------------------------------------------------------------
@@ -1181,7 +1288,8 @@ def test_a_replayed_step_counts_the_launches_of_a_traced_one(card, tmp_path):
     traced (a recording profiler keeps it eager), then the same step called
     until it replays its graph: the one launch registry grows alike for
     the traced and the replayed call, kernel by kernel, and each traced net
-    pass counts 5 fused scales of 5 and 4 fused neighbour stages of 4."""
+    pass counts 5 fused scales of 5 (2 of them factored, from 1 table) and
+    4 fused neighbour stages of 4."""
     from port_bench.drivers import track
     from port_bench.harness import Clock, Context, find_cell, load_spec
 
@@ -1219,8 +1327,11 @@ def test_a_replayed_step_counts_the_launches_of_a_traced_one(card, tmp_path):
     assert len(nets) >= 2
     for net in nets:
         assert {k: _total(net, k) for k in (
-            "sa_scales", "sa_fused", "nbr_stages", "nbr_fused")} == {
-            "sa_scales": 5, "sa_fused": 5, "nbr_stages": 4, "nbr_fused": 4}
+            "sa_scales", "sa_fused", "sa_factored", "nbr_stages",
+            "nbr_fused")} == {"sa_scales": 5, "sa_fused": 5,
+                              "sa_factored": 2, "nbr_stages": 4,
+                              "nbr_fused": 4}
     assert traced["sa_mlp_cuda"] == 5 * len(nets)
+    assert traced["sa_table_cuda"] == len(nets)
     assert traced["ball_query_cuda"] == traced["three_nn_cuda"] \
         == 2 * len(nets)

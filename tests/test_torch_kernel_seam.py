@@ -16,7 +16,7 @@ from captra_tpu_torch.utils import profiling
 KERNELS = {
     fps: ("fps_cuda_batched", "fps_cuda_wide", "fps_cuda_batched_cluster",
           "fps_cuda_wide_cluster", "fps_cuda_blocked"),
-    sa_mlp: ("sa_mlp_cuda",),
+    sa_mlp: ("sa_mlp_cuda", "sa_table_cuda"),
     neighbors: ("ball_query_cuda", "three_nn_cuda"),
 }
 CASES = [(m, k) for m, names in KERNELS.items() for k in names]
@@ -70,7 +70,8 @@ def _kernels(ret, counter=None):
     return k
 
 
-@pytest.mark.parametrize("counter", [None, "x_fused"])
+@pytest.mark.parametrize("counter", [None, "x_fused", {"x_cuda": "x_fused"},
+                                     {"y_cuda": "y_fused"}])
 def test_a_launch_passes_the_stream_and_counts_once(seam, counter):
     k = _kernels(0, counter)
     assert cuda_build.launch_counts == {"x_cuda": 0}
@@ -84,7 +85,10 @@ def test_a_launch_passes_the_stream_and_counts_once(seam, counter):
     profiling.reset()
     assert k.lib.captra_x.calls == [(7, 1234)]
     assert cuda_build.launch_counts == {"x_cuda": 1}
-    want = {} if counter is None else {counter: 1}
+    # a dict names each kernel's own counter, none for a kernel it leaves
+    # out
+    named = counter.get("x_cuda") if isinstance(counter, dict) else counter
+    want = {} if named is None else {named: 1}
     assert {c: n for c, n in root["counters"].items()
             if c != "host_syncs"} == want
 
